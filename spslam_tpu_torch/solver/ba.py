@@ -1,0 +1,281 @@
+"""Bundle adjustment with Schur landmark elimination (port of
+spslam_tpu/solver/ba.py, point terms).
+
+Fixed-shape problem (M poses, P points, R observations, all padded with
+validity masks), two LM stages with a chi2 gate in between, point blocks
+inverted in closed form and the reduced camera system solved densely.
+
+Plane terms: the problem keeps the reference's plane fields and the
+reduced system keeps its 3L plane rows, but this slice does not port the
+plane Jacobians.  `bundle_adjust` refuses valid plane rows; with none, the
+plane rows are pinned (diagonal 1, right-hand side 0) and contribute
+exactly zero, as in the reference.
+
+Differences in summation order: the camera blocks are scatter-added
+(`index_put_(accumulate=True)`; on CUDA these are atomics whose order
+varies between runs), where the reference contracts one-hot matrices.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..geometry.camera import Intrinsics
+from ..geometry.lie import quat_rotate, quat_to_mat, se3_q, se3_retract, se3_t
+from .robust import CHI2_2D, CHI2_3D, huber_weight
+
+
+class BAProblem(NamedTuple):
+    """Fixed-shape BA problem; -1 / False marks padding."""
+
+    poses: torch.Tensor        # [M, 7] T_cw
+    pose_fixed: torch.Tensor   # [M] bool (gauge / boundary KFs)
+    pose_valid: torch.Tensor   # [M] bool
+    points: torch.Tensor       # [P, 3] world points
+    point_valid: torch.Tensor  # [P] bool
+    obs_cam: torch.Tensor      # [R] int -> M
+    obs_pt: torch.Tensor       # [R] int -> P
+    obs_uv: torch.Tensor       # [R, 2]
+    obs_ur: torch.Tensor       # [R] virtual-right u, <0 if mono
+    obs_inv_sigma2: torch.Tensor  # [R]
+    obs_valid: torch.Tensor    # [R] bool
+    pt_obs: torch.Tensor       # [P, OMAX] int -> R (-1 pad) observation table
+    planes: torch.Tensor       # [L, 4] world planes (n, d)
+    plane_valid: torch.Tensor  # [L] bool
+    pobs_cam: torch.Tensor     # [Q] int -> M
+    pobs_plane: torch.Tensor   # [Q] int -> L
+    pobs_pi: torch.Tensor      # [Q, 4]
+    pobs_w: torch.Tensor       # [Q]
+    pobs_valid: torch.Tensor   # [Q] bool
+    pp_a: torch.Tensor         # [E] int -> L
+    pp_b: torch.Tensor         # [E] int -> L
+    pp_type: torch.Tensor      # [E] int: 0 parallel, 1 perpendicular
+    pp_w: torch.Tensor         # [E]
+    pp_valid: torch.Tensor     # [E] bool
+
+
+class BAResult(NamedTuple):
+    poses: torch.Tensor
+    points: torch.Tensor
+    planes: torch.Tensor
+    obs_inlier: torch.Tensor   # [R] bool post-gating classification
+    pobs_inlier: torch.Tensor  # [Q] bool
+    cost: torch.Tensor         # final robust cost
+
+
+def point_obs_residuals(poses, points, obs_cam, obs_pt, obs_uv, obs_ur,
+                        obs_inv_sigma2, intr: Intrinsics):
+    """e [R,3], J_c [R,3,6] (pose), J_p [R,3,3] (point), chi2 [R]."""
+    T = poses[obs_cam]
+    X = points[obs_pt]
+    q, t = se3_q(T), se3_t(T)
+    xc = quat_rotate(q, X) + t
+    x, y, z = xc[..., 0], xc[..., 1], torch.clamp_min(xc[..., 2], 1e-6)
+    iz = 1.0 / z
+    iz2 = iz * iz
+    u = intr.fx * x * iz + intr.cx
+    v = intr.fy * y * iz + intr.cy
+    ur = u - intr.bf * iz
+
+    has_r = obs_ur >= 0
+    e = torch.stack(
+        [obs_uv[..., 0] - u, obs_uv[..., 1] - v, torch.where(has_r, obs_ur - ur, 0.0)],
+        dim=-1,
+    )
+    zeros, ones = torch.zeros_like(z), torch.ones_like(z)
+    du = torch.stack([intr.fx * iz, zeros, -intr.fx * x * iz2], dim=-1)
+    dv = torch.stack([zeros, intr.fy * iz, -intr.fy * y * iz2], dim=-1)
+    dr = du + torch.stack([zeros, zeros, intr.bf * iz2], dim=-1)
+    dproj = torch.stack([du, dv, dr], dim=-2)
+    dxc_dxi = torch.stack(
+        [
+            torch.stack([ones, zeros, zeros, zeros, z, -y], dim=-1),
+            torch.stack([zeros, ones, zeros, -z, zeros, x], dim=-1),
+            torch.stack([zeros, zeros, ones, y, -x, zeros], dim=-1),
+        ],
+        dim=-2,
+    )
+    J_c = -(dproj @ dxc_dxi)
+    J_p = -(dproj @ quat_to_mat(q))   # dxc/dXw = R_cw
+
+    row_mask = torch.stack([ones, ones, has_r.to(e.dtype)], dim=-1)
+    e = e * row_mask
+    J_c = J_c * row_mask[..., None]
+    J_p = J_p * row_mask[..., None]
+    chi2 = torch.sum(e * e, dim=-1) * obs_inv_sigma2
+    return e, J_c, J_p, chi2
+
+
+def _point_residuals(poses, points, prob: BAProblem, intr: Intrinsics):
+    return point_obs_residuals(poses, points, prob.obs_cam, prob.obs_pt, prob.obs_uv,
+                               prob.obs_ur, prob.obs_inv_sigma2, intr)
+
+
+def _scatter_block_add(S, rows, cols, blocks):
+    """S[rows_i + a, cols_i + b] += blocks[i, a, b] (accumulating; invalid
+    terms are sent to a dump row/col beyond the trimmed system)."""
+    A, B = blocks.shape[1], blocks.shape[2]
+    r = rows[:, None] + torch.arange(A, dtype=rows.dtype, device=rows.device)[None, :]
+    c = cols[:, None] + torch.arange(B, dtype=cols.dtype, device=cols.device)[None, :]
+    r, c = torch.broadcast_tensors(r[:, :, None], c[:, None, :])
+    return S.index_put((r, c), blocks, accumulate=True)
+
+
+def _scatter_vec_add(b, rows, vecs):
+    A = vecs.shape[1]
+    r = rows[:, None] + torch.arange(A, dtype=rows.dtype, device=rows.device)[None, :]
+    return b.index_put((r,), vecs, accumulate=True)
+
+
+def _inv3x3(A):
+    """Batched closed-form 3x3 inverse; blocks singular relative to their
+    trace^3 get a zero inverse."""
+    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    A00 = e * i - f * h
+    A01 = c * h - b * i
+    A02 = b * f - c * e
+    A10 = f * g - d * i
+    A11 = a * i - c * g
+    A12 = c * d - a * f
+    A20 = d * h - e * g
+    A21 = b * g - a * h
+    A22 = a * e - b * d
+    det = a * A00 + b * A10 + c * A20
+    scale = torch.clamp_min((a + e + i) / 3.0, 1e-12)
+    singular = torch.abs(det) <= 1e-10 * scale ** 3
+    inv_det = torch.where(singular, 0.0, 1.0 / torch.where(singular, 1.0, det))
+    adj = torch.stack(
+        [
+            torch.stack([A00, A01, A02], -1),
+            torch.stack([A10, A11, A12], -1),
+            torch.stack([A20, A21, A22], -1),
+        ],
+        -2,
+    )
+    return adj * inv_det[..., None, None]
+
+
+def _solve_ba_iteration(poses, points, prob: BAProblem, intr, lam, obs_w_extra):
+    """One damped GN step.  Returns (dx_poses [M,6], dp [P,3])."""
+    M = poses.shape[0]
+    L = prob.planes.shape[0]
+    P = points.shape[0]
+    dim = 6 * M + 3 * L
+    DUMP = dim  # scratch rows/cols for masked scatter terms
+    dev = poses.device
+
+    e, J_c, J_p, chi2 = _point_residuals(poses, points, prob, intr)
+    delta2 = torch.where(prob.obs_ur >= 0, CHI2_3D, CHI2_2D)
+    w = (prob.obs_inv_sigma2 * huber_weight(chi2, delta2) * obs_w_extra
+         * prob.obs_valid.to(e.dtype))
+
+    # --- landmark blocks, gathered through the per-point observation table
+    pair_valid = prob.pt_obs >= 0
+    safe_idx = torch.clamp_min(prob.pt_obs, 0).long()          # [P, OMAX]
+    JpW = J_p * w[:, None, None]
+    Hpp_terms = torch.einsum("rai,raj->rij", JpW, J_p)        # [R,3,3]
+    bp_terms = -torch.einsum("rai,ra->ri", JpW, e)            # [R,3]
+    pv = pair_valid[..., None, None].to(e.dtype)
+    Hpp = torch.sum(Hpp_terms[safe_idx] * pv, dim=1)          # [P,3,3]
+    bp = torch.sum(bp_terms[safe_idx] * pair_valid[..., None], dim=1)
+    eye3 = torch.eye(3, dtype=e.dtype, device=dev)
+    Hpp = Hpp + (lam * torch.diag_embed(torch.diagonal(Hpp, dim1=-2, dim2=-1)) + 1e-6 * eye3)
+    Hpp_inv = torch.where(prob.point_valid[:, None, None], _inv3x3(Hpp), 0.0)
+
+    # --- camera blocks: block-diagonal, scatter-added per observation ----
+    cam6 = torch.where(prob.obs_valid, prob.obs_cam.long() * 6, DUMP)
+    JcW = J_c * w[:, None, None]
+    S = torch.zeros((dim + 6, dim + 6), dtype=e.dtype, device=dev)
+    S = _scatter_block_add(S, cam6, cam6, torch.einsum("rai,raj->rij", JcW, J_c))
+    b = torch.zeros((dim + 6,), dtype=e.dtype, device=dev)
+    b = _scatter_vec_add(b, cam6, -torch.einsum("rai,ra->ri", JcW, e))
+
+    # --- Schur reduction via the per-point stacked W -------------------
+    W_terms = torch.einsum("rai,raj->rij", JcW, J_p)          # [R,6,3] = Hcp
+    W_p = W_terms[safe_idx] * pair_valid[..., None, None]      # [P,OMAX,6,3]
+    cam_p = prob.obs_cam[safe_idx].long()                      # [P,OMAX]
+    bp_corr = torch.einsum("pij,pj->pi", Hpp_inv, bp)
+    oh_p = (
+        (cam_p[..., None] == torch.arange(M, device=dev)[None, None, :])
+        & pair_valid[..., None]
+    ).to(e.dtype)                                              # [P,OMAX,M]
+    Y = torch.einsum("pom,poib->pmib", oh_p, W_p).reshape(P, M * 6, 3)
+    b[: 6 * M] -= torch.einsum("pab,pb->a", Y, bp_corr)
+    Z = torch.einsum("pab,pbc->pac", Y, Hpp_inv)
+    S[: 6 * M, : 6 * M] -= torch.einsum("pac,pbc->ab", Z, Y)
+
+    # --- trim dump, damp, pin fixed/invalid entries ---------------------
+    # (plane rows: all plane observations and edges are invalid here, see
+    # module doc, so their blocks are zero and plane_valid pins them)
+    S = S[:dim, :dim]
+    b = b[:dim]
+    pose_free = prob.pose_valid & ~prob.pose_fixed
+    free = torch.cat([pose_free.repeat_interleave(6),
+                      prob.plane_valid.repeat_interleave(3)]).to(e.dtype)
+    S = S * free[:, None] * free[None, :]
+    b = b * free
+    S = S + torch.diag(lam * torch.diagonal(S) + 1e-6) + torch.diag(1.0 - free)
+
+    # cholesky_ex: no info check, so no host sync (a failed factorization
+    # gives NaNs and the step is rejected, as with the reference's cho_factor)
+    dx = torch.cholesky_solve(b[:, None], torch.linalg.cholesky_ex(S).L)[:, 0]
+    dx_cam = dx[: 6 * M].reshape(M, 6)
+
+    # back-substitute landmarks: dp = Hpp^{-1}(bp - W^T dxc)
+    Wt_dx = torch.einsum("poij,poi->pj", W_p, dx_cam[cam_p])
+    dp = torch.einsum("pij,pj->pi", Hpp_inv, bp - Wt_dx)
+    return dx_cam, dp * prob.point_valid[:, None]
+
+
+def _total_cost(poses, points, prob, intr, obs_w_extra):
+    _, _, _, chi2 = _point_residuals(poses, points, prob, intr)
+    delta2 = torch.where(prob.obs_ur >= 0, CHI2_3D, CHI2_2D)
+    rho = torch.where(
+        chi2 <= delta2, chi2,
+        2.0 * torch.sqrt(delta2 * torch.clamp_min(chi2, 1e-12)) - delta2,
+    )
+    return torch.sum(rho * prob.obs_valid * obs_w_extra)
+
+
+def bundle_adjust(prob: BAProblem, intr: Intrinsics, stage1_iters: int = 5,
+                  stage2_iters: int = 10) -> BAResult:
+    """Two-stage LM with a chi2 outlier gate in between (the reference's
+    LocalBundleAdjustment schedule).  Fixed iteration counts, accept/reject
+    by `torch.where`: no host sync inside the solve."""
+    if bool(prob.plane_valid.any() | prob.pobs_valid.any() | prob.pp_valid.any()):
+        raise NotImplementedError("plane terms in BA come with the planes slice")
+
+    def lm_stage(poses, points, n_iters, obs_w_extra):
+        lam = torch.tensor(1e-4, dtype=torch.float32, device=poses.device)
+        cost = _total_cost(poses, points, prob, intr, obs_w_extra)
+        for _ in range(n_iters):
+            dxc, dp = _solve_ba_iteration(poses, points, prob, intr, lam, obs_w_extra)
+            poses_new = se3_retract(poses, dxc)
+            points_new = points + dp
+            c_new = _total_cost(poses_new, points_new, prob, intr, obs_w_extra)
+            better = c_new < cost
+            poses = torch.where(better, poses_new, poses)
+            points = torch.where(better, points_new, points)
+            lam = torch.where(better, lam * 0.5, lam * 4.0)
+            cost = torch.where(better, c_new, cost)
+        return poses, points
+
+    ones_r = torch.ones_like(prob.obs_inv_sigma2)
+    poses, points = lm_stage(prob.poses, prob.points, stage1_iters, ones_r)
+
+    _, _, _, chi2 = _point_residuals(poses, points, prob, intr)
+    delta2 = torch.where(prob.obs_ur >= 0, CHI2_3D, CHI2_2D)
+    obs_inl = (chi2 <= delta2) & prob.obs_valid
+    poses, points = lm_stage(poses, points, stage2_iters, obs_inl.to(torch.float32))
+
+    _, _, _, chi2 = _point_residuals(poses, points, prob, intr)
+    obs_inl = (chi2 <= delta2) & prob.obs_valid
+    cost = _total_cost(poses, points, prob, intr, obs_inl.to(torch.float32))
+    return BAResult(
+        poses=poses, points=points, planes=prob.planes, obs_inlier=obs_inl,
+        pobs_inlier=torch.zeros_like(prob.pobs_valid), cost=cost,
+    )
