@@ -4,16 +4,23 @@
     python3 chip_smoke.py
 
 1. Builds the port's CUDA kernel (csrc/fast_nms.cu) with nvcc.
-2. Kernel phase: the FAST+NMS kernel against its plain PyTorch version
-   (nms3x3(fast_score_map(img))) on the card, at every level shape of the
-   640x480 8-level pyramid and at (101, 131): bit-exact inside the 19-px
-   detection border.  Times both: device time from the CUDA profiler,
-   and CUDA-event time around single calls (median of 60).
+2. Kernel phase: the FAST+NMS kernel against its plain PyTorch version on
+   the card.  (a) One level at a time without a border, at every level
+   shape of the 640x480 8-level pyramid and at (101, 131): bit-exact
+   inside 19 px.  (b) All 8 levels in one launch with the 19-px detection
+   border: bit-exact on every whole level; this is the per-frame time.
+   (c) The same with a 4-px border and with a 4-level table.  Times are
+   device time from the CUDA profiler and CUDA-event time around single
+   calls (median of 60); the host's time per call is taken too.  The
+   bound is the larger of the bytes over the card's memory rate and the
+   lane operations over its peak rate (the min/max rate measured here),
+   the ring counted on every scored pixel; the count with the ring only
+   where this run's images pass the kernel's compass test is printed too.
 3. Frame phase: build_frame of one frame on the card against the CPU.
 4. Path phase: the port's System (point-only tracking + local BA) on a
    20-frame 640x480 synthetic sequence, 1024 features, 8 levels, from the
-   entry point a user calls; asserts no LOST frame, ATE < 0.02 m and that
-   every frame through the fused step launched the kernel at all 8 levels.
+   entry point a user calls; asserts no LOST frame, ATE < 0.02 m and
+   exactly one kernel launch per frame.
 5. Prints the kernel table as one JSON line, the card's name and power
    limit, and as the last line {"ok": true, "device": {...}}.
 
@@ -32,6 +39,10 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (NVIDIA data sheet)
+# H100 SXM float32 lane operations per second outside the tensor cores:
+# 132 SMs x 128 lanes x 1.98 GHz, the data sheet's boost clock (its
+# 67 TFLOP/s counts a multiply-add twice; this kernel has none)
+LANE_OPS_PER_S = 132 * 128 * 1.98e9
 BORDER = 19                 # detect_levels' detection border
 
 
@@ -91,13 +102,68 @@ def _timed_ms(fn, n=60, warmup=5):
     return (dev_us / 1e3 / n if dev_us > 0 else None), float(np.median(times))
 
 
-def kernel_phase(spec):
+def _us(x):
+    return "n/a" if x is None else f"{x * 1e3:8.2f}"
+
+
+def _bound(work, minmax_rate):
+    """(bound ms, bound by, bytes ms, operations ms) of a FastNmsWork."""
+    bytes_ms = work.bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(work.ops / LANE_OPS_PER_S,
+                 work.minmax_ops / min(LANE_OPS_PER_S, minmax_rate)) * 1e3
+    return (max(bytes_ms, ops_ms), "operations" if ops_ms > bytes_ms else "bytes",
+            bytes_ms, ops_ms)
+
+
+def _ring_px(levels, border):
+    """Scored pixels of these levels that pass the kernel's compass test."""
+    from spslam_tpu_torch.ops import fast_cuda
+    from spslam_tpu_torch.ops.fast import compass_reject
+
+    return sum(int((~compass_reject(img, 7.0))[fast_cuda.scored_region(*img.shape, border)].sum())
+               for img in levels)
+
+
+def _check_levels(levels, border, label):
+    """One launch over `levels` against the plain version; bit-exact on
+    every whole level (border >= 4).  Returns the corner count."""
+    import torch
+
+    from spslam_tpu_torch.ops import fast_cuda
+
+    got = fast_cuda.fast_nms_scores_levels_cuda(levels, 7.0, 20.0, border)
+    want = fast_cuda.fast_nms_scores_levels_plain(levels, 7.0, 20.0, border)
+    torch.cuda.synchronize()
+    n_corner = 0
+    for lvl, (g, w) in enumerate(zip(got, want)):
+        n_diff = g.numel() if g.shape != w.shape else int((g != w).sum())
+        if n_diff:
+            raise AssertionError(f"fast_nms {label}: level {lvl} {tuple(g.shape)} differs from "
+                                 f"plain at {n_diff} px")
+        n_corner += int((w > 0).sum())
+    print(f"  fast_nms {label}: {len(levels)} levels, border {border}, one launch, "
+          f"bit-exact on every whole level, corners={n_corner}")
+    return n_corner
+
+
+def kernel_phase(spec, frame_gray):
     import torch
 
     from spslam_tpu_torch.ops import fast_cuda
     from spslam_tpu_torch.ops.fast import fast_score_map, nms3x3
+    from spslam_tpu_torch.ops.pyramid import PyramidSpec, build_pyramid_levels
 
-    rows = []
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm", "--format=csv,noheader", "-i", "0"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    rates = [fast_cuda.measure_rate(kind) for kind in (0, 1, 2)]
+    minmax_rate = rates[2]
+    print(f"  lane operations/s in a register-only loop: float32 add {rates[0]:.4g}, "
+          f"float32 min/max {rates[1]:.4g}, int32 min3/max3 {rates[2]:.4g}; "
+          f"data-sheet float32 rate {LANE_OPS_PER_S:.4g}; SM clocks max, now: {clocks}")
+
+    # (a) one level per launch, no border
+    max_err = 0.0
     shapes = list(spec.level_sizes) + [(101, 131)]
     for (h, w) in shapes:
         img = torch.from_numpy(_image(h, w, seed=h * 1000 + w)).cuda()
@@ -113,16 +179,71 @@ def kernel_phase(spec):
                                  f"inside the border of {h}x{w} (max abs {err})")
         k_dev, k_ev = _timed_ms(lambda: fast_cuda.fast_nms_scores_cuda(img, 7.0, 20.0))
         p_dev, p_ev = _timed_ms(lambda: nms3x3(fast_score_map(img, 7.0, 20.0)))
-        bound_ms = h * w * 8 / HBM_BYTES_PER_S * 1e3
-        # device time where the profiler gives it, else the event time
-        rows.append(dict(shape=(h, w), err=err, corners=n_corner,
-                         ms=k_dev if k_dev is not None else k_ev,
-                         plain_ms=p_dev if p_dev is not None else p_ev, bound_ms=bound_ms))
-        fmt = lambda x: "n/a" if x is None else f"{x * 1e3:8.2f}"  # noqa: E731
+        bound_ms, by, bytes_ms, ops_ms = _bound(fast_cuda.fast_nms_work([(h, w)], 0),
+                                                minmax_rate)
+        data_ops_ms = _bound(fast_cuda.fast_nms_work([(h, w)], 0, _ring_px([img], 0)),
+                             minmax_rate)[3]
+        max_err = max(max_err, err)
         print(f"  fast_nms {h:4d}x{w:<4d} corners={n_corner:5d} max_abs_err={err} "
-              f"kernel device {fmt(k_dev)} us (event {fmt(k_ev)})  "
-              f"plain device {fmt(p_dev)} us (event {fmt(p_ev)})  bound {bound_ms * 1e3:6.3f} us")
-    return rows
+              f"kernel device {_us(k_dev)} us (event {_us(k_ev)})  "
+              f"plain device {_us(p_dev)} us (event {_us(p_ev)})  bound {bound_ms * 1e3:6.3f} us "
+              f"by {by} (bytes {bytes_ms * 1e3:.3f}, operations {ops_ms * 1e3:.3f}; "
+              f"{data_ops_ms * 1e3:.3f} with the ring on this image's candidates only)")
+
+    # (b) the frame's one launch: all 8 levels, detection border inside
+    levels = [torch.from_numpy(_image(h, w, seed=h * 1000 + w)).cuda()
+              for (h, w) in spec.level_sizes]
+    _check_levels(levels, BORDER, "smoke images")
+    k_dev, k_ev = _timed_ms(
+        lambda: fast_cuda.fast_nms_scores_levels_cuda(levels, 7.0, 20.0, BORDER))
+    p_dev, p_ev = _timed_ms(
+        lambda: fast_cuda.fast_nms_scores_levels_plain(levels, 7.0, 20.0, BORDER))
+    n_host = 300
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_host):
+        fast_cuda.fast_nms_scores_levels_cuda(levels, 7.0, 20.0, BORDER)
+    host_us = (time.perf_counter() - t0) / n_host * 1e6
+    torch.cuda.synchronize()
+    # the bound counts the ring on every scored pixel; beside it, the count
+    # with the ring only where this run's images pass the compass test
+    work = fast_cuda.fast_nms_work(spec.level_sizes, BORDER)
+    bound_ms, by, bytes_ms, ops_ms = _bound(work, minmax_rate)
+    data = fast_cuda.fast_nms_work(spec.level_sizes, BORDER, _ring_px(levels, BORDER))
+    data_ms, data_by, _, data_ops_ms = _bound(data, minmax_rate)
+    print(f"  fast_nms frame (8 levels, border {BORDER}, one launch): kernel device {_us(k_dev)} us "
+          f"(event {_us(k_ev)}), host {host_us:.2f} us per call, plain device {_us(p_dev)} us "
+          f"(event {_us(p_ev)})")
+    print(f"  fast_nms frame bound {bound_ms * 1e3:.3f} us by {by}: bytes {work.bytes} -> "
+          f"{bytes_ms * 1e3:.3f} us; operations {work.ops} ({work.minmax_ops} min/max class), "
+          f"ring on all {work.scored_px} scored px -> {ops_ms * 1e3:.3f} us; "
+          f"with the ring on the {data.ring_px} px that pass the compass test: operations "
+          f"{data.ops} ({data.minmax_ops}) -> {data_ops_ms * 1e3:.3f} us, "
+          f"{data_ms * 1e3:.3f} us by {data_by}")
+
+    # the same launch on the pyramid of a rendered frame of the path phase
+    gray = torch.from_numpy(frame_gray).cuda()
+    real, _ = build_pyramid_levels(gray, spec, blur=False)
+    _check_levels(real, BORDER, "rendered frame")
+    r_dev, r_ev = _timed_ms(
+        lambda: fast_cuda.fast_nms_scores_levels_cuda(real, 7.0, 20.0, BORDER))
+    print(f"  fast_nms frame on a rendered frame's pyramid: kernel device {_us(r_dev)} us "
+          f"(event {_us(r_ev)})")
+
+    # (c) a 4-px border, and a 4-level table
+    _check_levels(levels, 4, "smoke images")
+    spec4 = PyramidSpec(n_levels=4, scale_factor=1.2, height=240, width=320)
+    levels4 = [torch.from_numpy(_image(h, w, seed=h * 1000 + w)).cuda()
+               for (h, w) in spec4.level_sizes]
+    _check_levels(levels4, BORDER, "4-level table")
+    _check_levels(levels4, 4, "4-level table")
+
+    return dict(
+        max_abs_err=max_err,
+        ms=k_dev if k_dev is not None else k_ev,
+        plain_ms=p_dev if p_dev is not None else p_ev,
+        bound_ms=bound_ms, bound_by=by, host_us=host_us,
+    )
 
 
 def frame_phase(seq):
@@ -195,8 +316,10 @@ def path_phase(seq):
         raise AssertionError(f"only {sys_.store.n_kf} keyframes")
     if not ate < 0.02:
         raise AssertionError(f"ATE {ate} m >= 0.02 m")
-    if n_fused == 0 or launches < 8 * n_fused:
-        raise AssertionError(f"kernel launched {launches} times for {n_fused} fused frames")
+    # one launch per frame, through the fused step or an initialisation
+    if n_fused == 0 or launches != len(frames):
+        raise AssertionError(f"kernel launched {launches} times for {len(frames)} frames "
+                             f"({n_fused} through the fused step)")
     return dict(launches=launches, n_fused=n_fused, ate=ate, steady_ms=steady_ms)
 
 
@@ -220,28 +343,27 @@ def main() -> int:
     print(f"kernel build {time.perf_counter() - t0:.2f} s")
 
     spec = PyramidSpec(n_levels=8, scale_factor=1.2, height=480, width=640)
-    print("kernel phase")
-    rows = kernel_phase(spec)
     t0 = time.perf_counter()
     seq = make_sequence(n_frames=20)
     print(f"rendered 20 frames in {time.perf_counter() - t0:.1f} s")
+    print("kernel phase")
+    kern = kernel_phase(spec, np.clip(seq.frames[3][0], 0, 255).astype(np.uint8)
+                        .astype(np.float32))
     print("frame phase")
     frame_phase(seq)
     print("path phase")
     path = path_phase(seq)
 
-    level = [r for r in rows if r["shape"] in set(spec.level_sizes)]
     kernels = [dict(
         name="fast_nms", route="cuda", source="spslam_tpu_torch/csrc/fast_nms.cu",
         replaces="spslam_tpu/ops/fast_pallas.py:99",
         launches=path["launches"],
-        max_abs_err=max(r["err"] for r in rows),
-        # per frame: the 8 level launches of one pyramid
-        ms=sum(r["ms"] for r in level),
-        plain_ms=sum(r["plain_ms"] for r in level),
-        bound_ms=sum(r["bound_ms"] for r in level),
-        bound_by="bytes",
-        library_ms=None,
+        max_abs_err=kern["max_abs_err"],
+        # per frame: the one launch over the 8 levels of a pyramid
+        ms=kern["ms"], plain_ms=kern["plain_ms"],
+        # the ring counted on every scored pixel, whatever the data
+        bound_ms=kern["bound_ms"], bound_by=kern["bound_by"],
+        library_ms=None, host_us_per_call=kern["host_us"],
     )]
     print(json.dumps({"kernels": kernels}))
     print(card)

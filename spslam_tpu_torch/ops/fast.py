@@ -2,8 +2,9 @@
 
 `fast_score_map` and `nms3x3` are the plain PyTorch versions of the fused
 kernel in ops/fast_cuda.py; `detect_levels` calls the dispatch
-`fast_cuda.fast_nms_scores`, which launches the CUDA kernel for a CUDA
-tensor and uses these plain versions only for a CPU tensor.
+`fast_cuda.fast_nms_scores_levels` once for all levels, which launches the
+CUDA kernel once for CUDA tensors and uses these plain versions only for
+CPU tensors.  The detection border is part of that function.
 
 Top-k ties: FAST scores of u8 images are integer-valued, so equal scores
 are common.  `jax.lax.top_k` returns the lower index first among equals;
@@ -50,6 +51,19 @@ def fast_score_map(img: torch.Tensor, th_low: float, th_high: float) -> torch.Te
     score = torch.maximum(arc_min_max(diff), arc_min_max(-diff))
     out = torch.where(score > th_low, score, 0.0)
     return out + torch.where(score > th_high, SCORE_BONUS, 0.0)
+
+
+def compass_reject(img: torch.Tensor, th_low: float) -> torch.Tensor:
+    """Plain version of the kernel's exact early reject: True where
+    `fast_score_map` is certainly 0.  Any 9-arc of the ring holds two
+    neighbouring compass pixels (ring positions 0, 4, 8, 12), one of
+    north/south and one of east/west, so a score above th_low needs
+    max(n, s) and max(e, w) above th_low (a bright arc) or min(n, s) and
+    min(e, w) below -th_low (a dark one)."""
+    n, e, s, w = (_shift2d(img, *CIRCLE_OFFSETS[k][::-1]) - img for k in (0, 4, 8, 12))
+    hi = torch.minimum(torch.maximum(n, s), torch.maximum(e, w))
+    lo = torch.maximum(torch.minimum(n, s), torch.minimum(e, w))
+    return ~((hi > th_low) | (lo < -th_low))
 
 
 def nms3x3(score: torch.Tensor) -> torch.Tensor:
@@ -124,7 +138,7 @@ def detect_levels(levels, spec: PyramidSpec, n_features: int = 1024,
                   tile: int = 32, k_per_tile: int = 8):
     """FAST + NMS + tiled top-k over a true-size level tuple; keypoints stay
     grouped by level with the static counts of `level_feature_counts`."""
-    from .fast_cuda import fast_nms_scores
+    from .fast_cuda import fast_nms_scores_levels
 
     counts = level_feature_counts(spec, n_features)
     out_xy_l, out_xy0, out_score, out_oct, out_valid = [], [], [], [], []
@@ -136,12 +150,10 @@ def detect_levels(levels, spec: PyramidSpec, n_features: int = 1024,
                 f"level {lvl}: budget {counts[lvl]} exceeds tile capacity {cap} "
                 f"({h_l}x{w_l}, tile={tile}, k_per_tile={k_per_tile})"
             )
-        score = fast_nms_scores(levels[lvl], th_low, th_high)
-        masked = torch.zeros_like(score)
-        masked[border : h_l - border, border : w_l - border] = (
-            score[border : h_l - border, border : w_l - border]
-        )
-        kps = select_tiled_topk(masked, counts[lvl], tile=tile, k_per_tile=k_per_tile)
+    # FAST + NMS + border of all levels: one kernel launch on the card
+    scores = fast_nms_scores_levels(levels[: spec.n_levels], th_low, th_high, border)
+    for lvl, score in enumerate(scores):
+        kps = select_tiled_topk(score, counts[lvl], tile=tile, k_per_tile=k_per_tile)
         s = spec.scale_factor ** lvl
         out_xy_l.append(kps.xy)
         out_xy0.append(kps.xy * s)

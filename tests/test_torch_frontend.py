@@ -14,11 +14,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+from hypothesis.extra import numpy as hnp
 
 from spslam_tpu.frontend import frame as jframe
 from spslam_tpu.geometry.camera import Intrinsics as JIntr
 from spslam_tpu.ops import brief as jbrief
 from spslam_tpu.ops import fast as jfast
+from spslam_tpu.ops import fast_pallas as jfast_pallas
 from spslam_tpu.ops import pyramid as jpyr
 from spslam_tpu_torch.frontend import frame as tframe
 from spslam_tpu_torch.geometry.camera import Intrinsics as TIntr
@@ -81,6 +85,127 @@ def test_fast_score_and_nms_bit_exact(shape, kind):
 def test_cuda_wrapper_refuses_cpu_tensor():
     with pytest.raises(ValueError):
         fast_cuda.fast_nms_scores_cuda(torch.zeros(8, 8), 7.0, 20.0)
+
+
+def _level_table_inputs(table):
+    """Level images of a named table, from a numpy seed."""
+    if table == "1-level 101x131":
+        return [_smooth_image(101, 131, seed=3)]
+    img = _smooth_image(240, 320, seed=4)
+    levels, _ = tpyr.build_pyramid_levels(t(img), tpyr.PyramidSpec(4, 1.2, 240, 320), blur=False)
+    return [n(x) for x in levels]
+
+
+@pytest.mark.parametrize("border", [4, 19])
+@pytest.mark.parametrize("table", ["4-level 240x320", "1-level 101x131"])
+def test_fast_nms_levels_against_reference(table, border):
+    """All levels through the port's one function (on the CPU its plain
+    version) against the JAX package's per-level dispatch and mask: exact on
+    the whole image."""
+    levels = _level_table_inputs(table)
+    before = fast_cuda.LAUNCHES
+    got = fast_cuda.fast_nms_scores_levels([t(x) for x in levels], 7.0, 20.0, border)
+    assert fast_cuda.LAUNCHES == before
+    assert len(got) == len(levels)
+    n_corners = 0
+    for lvl, g in zip(levels, got):
+        h, w = lvl.shape
+        mask = np.zeros((h, w), bool)
+        mask[border : h - border, border : w - border] = True
+        want = jnp.where(jnp.asarray(mask),
+                         jfast_pallas.fast_nms_scores(jnp.asarray(lvl), 7.0, 20.0), 0.0)
+        np.testing.assert_array_equal(n(g), n(want))
+        n_corners += int((n(want) > 0).sum())
+    assert n_corners > 20
+
+
+def _bad_levels(case):
+    ok = torch.zeros(40, 50)
+    return {
+        "non-contiguous": [ok, torch.zeros(50, 40).T],
+        "float64": [ok.double()],
+        "3-D": [ok[None]],
+        "17 levels": [ok] * 17,
+        "empty table": [],
+    }[case]
+
+
+@pytest.mark.parametrize("entry", ["dispatch", "cuda"])
+@pytest.mark.parametrize("case", ["non-contiguous", "float64", "3-D", "17 levels",
+                                  "empty table"])
+def test_fast_nms_levels_refuses(case, entry):
+    fn = (fast_cuda.fast_nms_scores_levels if entry == "dispatch"
+          else fast_cuda.fast_nms_scores_levels_cuda)
+    with pytest.raises(ValueError):
+        fn(_bad_levels(case), 7.0, 20.0, 19)
+
+
+def test_fast_nms_levels_cuda_refuses_cpu_and_negative_thresholds():
+    with pytest.raises(ValueError, match="cuda"):
+        fast_cuda.fast_nms_scores_levels_cuda([torch.zeros(40, 50)], 7.0, 20.0, 19)
+    for bad in ((-1.0, 20.0, 19), (7.0, -20.0, 19), (7.0, 20.0, -1)):
+        with pytest.raises(ValueError):
+            fast_cuda.fast_nms_scores_levels([torch.zeros(40, 50)], *bad)
+
+
+def test_fast_nms_work_counts():
+    work = fast_cuda.fast_nms_work(LEVEL_SIZES, 0)
+    assert work.bytes == 950_532 * 8
+    assert work.scored_px == work.ring_px == 950_532
+    assert work.ops == 950_532 * (4 + 9 + 33 + 85 + 16)
+    # with the detection border fewer pixels need a score, and the ring is
+    # counted only where the data passes the compass test
+    inner = fast_cuda.fast_nms_work(LEVEL_SIZES, 19)
+    assert inner.bytes == work.bytes and inner.scored_px == 775_284 < work.scored_px
+    some = fast_cuda.fast_nms_work(LEVEL_SIZES, 19, ring_px=100_000)
+    assert some.ops == inner.ops - (775_284 - 100_000) * (33 + 85)
+    assert some.minmax_ops < inner.minmax_ops < inner.ops
+    assert fast_cuda.fast_nms_work([(30, 30)], 19).scored_px == 0
+
+
+@pytest.mark.parametrize("border", [0, 4, 19, 60])
+def test_level_table_tiles_cover_the_interior(border):
+    """The flat tile grid the kernel runs on: per level, 30x30 tiles over the
+    interior (one tile where there is none), first tiles ascending."""
+    sizes = ((101, 131), (84, 109), (20, 300))
+    table, entries, n_tiles = fast_cuda._level_table(sizes, border)
+    assert len(entries) == len(sizes)
+    ends = [lv.tile0 for lv in entries[1:]] + [n_tiles]
+    first = 0
+    for lv, end, (h, w) in zip(entries, ends, sizes):
+        assert (lv.H, lv.W, lv.tile0) == (h, w, first)
+        tiles_y, rem = divmod(end - lv.tile0, lv.tiles_x)
+        assert rem == 0
+        for tiles, extent in ((lv.tiles_x, w - 2 * border), (tiles_y, h - 2 * border)):
+            assert tiles == max(1, -(-extent // fast_cuda.TILE))
+        first = end
+    # the entries are views of the table that is passed to the launch
+    entries[1].img = 12345
+    assert table.lv[1].img == 12345
+
+
+def _assert_rejects_only_zero_scores(img, th_low=7.0, th_high=20.0):
+    reject = n(tfast.compass_reject(t(img), th_low))
+    score = n(tfast.fast_score_map(t(img), th_low, th_high))
+    assert not score[reject].any()
+    return reject
+
+
+@pytest.mark.parametrize("kind", ["smooth", "tied_u8"])
+def test_compass_reject_is_exact(kind):
+    img = (_smooth_image(101, 131, seed=11) if kind == "smooth"
+           else textured_u8(101, 131, seed=12).astype(np.float32))
+    reject = _assert_rejects_only_zero_scores(img)
+    # the case proves something: some pixels are rejected, and corners remain
+    assert reject.any() and not reject.all()
+    assert (n(tfast.fast_score_map(t(img), 7.0, 20.0)) > 0).sum() > 20
+
+
+@settings(max_examples=30, deadline=None)
+@given(hnp.arrays(np.float32, (24, 28), elements=st.floats(0, 255, width=32)),
+       st.sampled_from([0.0, 7.0, 20.0, 64.0]))
+def test_compass_reject_is_exact_on_random_images(img, th_low):
+    _assert_rejects_only_zero_scores(img, th_low=th_low, th_high=max(th_low, 20.0))
 
 
 def test_detect_levels_tied_scores_identical():
