@@ -21,8 +21,22 @@
    20-frame 640x480 synthetic sequence, 1024 features, 8 levels, from the
    entry point a user calls; asserts no LOST frame, ATE < 0.02 m and
    exactly one kernel launch per frame.
-5. Prints the kernel table as one JSON line, the card's name and power
-   limit, and as the last line {"ok": true, "device": {...}}.
+5. Segmentation phase: segment_planes on the card against the CPU on
+   frame 2 of that sequence, at 640x480 (the plane mapper's input) and at
+   the 320x240 stride-2 depth (the fused step's): equal valid counts, the
+   same planes in the same order, normal dot > 0.9999994, |dd| < 2e-3
+   (the gate the JAX package holds its TPU run to).  Prints the TF32
+   flags, the device time of one call and its host syncs.
+6. Planes path phase: System(use_planes=True) on the low-texture,
+   noisy-depth 30-frame sequence of the planes lane (seed 7, 0.8% depth
+   noise, u8 gray and u16 depth, pipeline depth 2, th_depth 3.2): asserts
+   >= 4 map planes, ATE < 0.02 m, no more LOST frames than the JAX
+   package's CPU run of the same frames (0) and one kernel launch per
+   frame; the point-only System runs on the same frames for the ATE ratio,
+   which is printed.
+7. Prints the kernel table as one JSON line (launches counted over both
+   paths), the card's name and power limit, and as the last line
+   {"ok": true, "device": {...}}.
 
 Exits non-zero (and prints no result) without CUDA, or when any phase
 fails.  Imports nothing of JAX or of the JAX package.
@@ -44,6 +58,8 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (NVIDIA data sheet)
 # 67 TFLOP/s counts a multiply-add twice; this kernel has none)
 LANE_OPS_PER_S = 132 * 128 * 1.98e9
 BORDER = 19                 # detect_levels' detection border
+# the JAX package's LOST frames on the planes phase's frames, on the CPU
+REF_LOWTEX_LOST = 0
 
 
 def _card_line() -> str:
@@ -323,6 +339,118 @@ def path_phase(seq):
     return dict(launches=launches, n_fused=n_fused, ate=ate, steady_ms=steady_ms)
 
 
+def segmentation_phase(seq):
+    """segment_planes of frame 2 on the card against the CPU."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from spslam_tpu_torch.ops.plane_seg import segment_planes
+
+    print(f"  TF32: cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+          f"float32_matmul_precision={torch.get_float32_matmul_precision()}")
+    depth = seq.frames[2][1]
+    out = {}
+    for s in (1, 2):
+        intr = seq.intr._replace(fx=seq.intr.fx / s, fy=seq.intr.fy / s, cx=seq.intr.cx / s,
+                                 cy=seq.intr.cy / s, width=seq.intr.width // s,
+                                 height=seq.intr.height // s)
+        d = np.ascontiguousarray(depth[::s, ::s])
+        d_gpu = torch.from_numpy(d).cuda()
+        g = segment_planes(d_gpu, intr)
+        c = segment_planes(torch.from_numpy(d), intr)
+        vg, vc = g.valid.cpu().numpy(), c.valid.numpy()
+        cg, cc = g.coef.cpu().numpy()[vg], c.coef.numpy()[vc]
+        ng, nc = g.n_inliers.cpu().numpy(), c.n_inliers.numpy()
+        if vg.sum() != vc.sum() or vg.sum() == 0:
+            raise AssertionError(f"segment_planes {d.shape}: {vg.sum()} planes on the card, "
+                                 f"{vc.sum()} on the CPU")
+        worst_dot, worst_dd = 1.0, 0.0
+        for a, b in zip(cg, cc):
+            b = -b if np.dot(a[:3], b[:3]) < 0 else b
+            worst_dot = min(worst_dot, float(np.dot(a[:3], b[:3])))
+            worst_dd = max(worst_dd, float(abs(a[3] - b[3])))
+        if not (worst_dot > 0.9999994 and worst_dd < 2e-3):
+            raise AssertionError(f"segment_planes {d.shape}: card vs CPU normal dot {worst_dot}, "
+                                 f"|dd| {worst_dd}")
+        dev_ms, ev_ms = _timed_ms(lambda: segment_planes(d_gpu, intr), n=20, warmup=3)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            segment_planes(d_gpu, intr)
+            torch.cuda.synchronize()
+        evs = prof.key_averages()
+        syncs = {e.key: e.count for e in evs if "Synchronize" in e.key
+                 or e.key in ("aten::item", "aten::_local_scalar_dense")}
+        n_kernels = sum(e.count for e in evs if "CUDA" in str(e.device_type)
+                        and float(getattr(e, "self_device_time_total", 0.0) or 0.0) > 0)
+        print(f"  segment_planes {d.shape[1]}x{d.shape[0]}: {int(vg.sum())} planes on both, "
+              f"n_inliers equal {bool(np.array_equal(ng, nc))}, worst normal dot {worst_dot:.9f}, "
+              f"worst |dd| {worst_dd:.3g} m; device {_us(dev_ms)} us (event {_us(ev_ms)}) per "
+              f"call, {n_kernels} kernels, host syncs in one call {syncs}")
+        out[s] = dict(ms=dev_ms if dev_ms is not None else ev_ms, syncs=syncs)
+    return out
+
+
+def planes_path_phase():
+    """The point+plane path on the low-texture sequence, and the point-only
+    path on the same frames for the ATE ratio."""
+    import torch
+
+    from spslam_tpu_torch.eval.ate import ate_rmse
+    from spslam_tpu_torch.io.synthetic import make_sequence
+    from spslam_tpu_torch.ops import fast_cuda
+    from spslam_tpu_torch.system import System, SystemConfig
+    from spslam_tpu_torch.tracking.tracker import TrackerConfig
+
+    t0 = time.perf_counter()
+    seq = make_sequence(n_frames=30, low_texture=True, depth_noise=0.008, seed=7)
+    frames = [
+        (np.clip(g, 0, 255).astype(np.uint8), np.clip(d * 5000.0, 0, 65535).astype(np.uint16))
+        for g, d in seq.frames
+    ]
+    print(f"  rendered the 30 low-texture frames in {time.perf_counter() - t0:.1f} s")
+    res = {}
+    for use_planes in (True, False):
+        sys_ = System(SystemConfig(intr=seq.intr, local_ba=True, enable_reloc=False,
+                                   use_planes=use_planes,
+                                   tracker=TrackerConfig(th_depth=3.2, pipeline_depth=2)),
+                      device="cuda")
+        fast_cuda.LAUNCHES = 0
+        times = []
+        for (gray, depth), ts in zip(frames, seq.timestamps):
+            t1 = time.perf_counter()
+            sys_.track_rgbd(gray, depth, ts)
+            times.append(time.perf_counter() - t1)
+        sys_.shutdown()
+        torch.cuda.synchronize()
+        launches = fast_cuda.LAUNCHES
+        poses = sys_.poses()
+        if poses.shape != (len(frames), 7) or not np.isfinite(poses).all():
+            raise AssertionError(f"bad trajectory {poses.shape}")
+        ate, _ = ate_rmse(poses, seq.poses_gt)
+        r = dict(ate=ate, launches=launches, steady_ms=float(np.median(times[5:])) * 1e3,
+                 n_kf=int(sys_.store.n_kf), n_planes=int(sys_.store.pl_valid.sum()),
+                 n_lost=sum(1 for m in sys_.tracker.metrics if m["state"] == "LOST"),
+                 n_fused=sys_.tracker.n_fused, edges=len(sys_.store.ppe_a))
+        res[use_planes] = r
+        print(f"  {'planes' if use_planes else 'points'}: ATE {ate * 1e3:.3f} mm, LOST "
+              f"{r['n_lost']}, keyframes {r['n_kf']}, map planes {r['n_planes']}, structural "
+              f"edges {r['edges']}, fused {r['n_fused']}, kernel launches {launches}, median "
+              f"steady {r['steady_ms']:.3f} ms per track_rgbd call (frames 5..)")
+        if use_planes:
+            if r["n_planes"] < 4:
+                raise AssertionError(f"only {r['n_planes']} map planes")
+            if not ate < 0.02:
+                raise AssertionError(f"planes ATE {ate} m >= 0.02 m")
+            if r["n_lost"] > REF_LOWTEX_LOST:
+                raise AssertionError(f"{r['n_lost']} LOST frames, the reference has "
+                                     f"{REF_LOWTEX_LOST}")
+            if launches != len(frames):
+                raise AssertionError(f"kernel launched {launches} times for {len(frames)} frames")
+    print(f"  planes / points ATE ratio {res[True]['ate'] / res[False]['ate']:.3f}")
+    return res[True]
+
+
 def main() -> int:
     import torch
 
@@ -353,11 +481,16 @@ def main() -> int:
     frame_phase(seq)
     print("path phase")
     path = path_phase(seq)
+    print("segmentation phase")
+    segmentation_phase(seq)
+    print("planes path phase")
+    planes = planes_path_phase()
 
     kernels = [dict(
         name="fast_nms", route="cuda", source="spslam_tpu_torch/csrc/fast_nms.cu",
         replaces="spslam_tpu/ops/fast_pallas.py:99",
-        launches=path["launches"],
+        # the point path's and the planes path's runs
+        launches=path["launches"] + planes["launches"],
         max_abs_err=kern["max_abs_err"],
         # per frame: the one launch over the 8 levels of a pyramid
         ms=kern["ms"], plain_ms=kern["plain_ms"],

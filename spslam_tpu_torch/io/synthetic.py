@@ -1,5 +1,6 @@
 """Synthetic textured RGB-D sequence with exact ground truth (numpy copy of
-spslam_tpu/io/synthetic.py, orbit trajectory).
+spslam_tpu/io/synthetic.py, orbit trajectory, with the low-texture room and
+the depth noise of the planes lane).
 
 A ray-cast "room" of finite textured rectangles (floor, walls, boxes).  The
 reference builds its textures with OpenCV's resize; this copy computes the
@@ -90,8 +91,24 @@ def _noise_texture(rng, th=256, tw=256, base=120.0, contrast=90.0, cell=16):
     return np.clip(tex, 5, 250).astype(np.float32)
 
 
-def make_room(seed: int = 0, size: float = 6.0, height: float = 3.0) -> List[TexturedRect]:
-    """A closed box room + two interior boxes, all textured."""
+def _low_texture(rng, th=256, tw=256, base=120.0):
+    """Near-uniform surface with a few faint blobs: FAST finds almost no
+    corners on it, while its depth planes stay exact."""
+    tex = np.full((th, tw), base, np.float32)
+    tex += rng.normal(0, 1.5, (th, tw)).astype(np.float32)
+    for _ in range(int(rng.integers(2, 4))):
+        cy, cx = rng.integers(30, th - 30), rng.integers(30, tw - 30)
+        r = int(rng.integers(10, 22))
+        yy, xx = np.ogrid[:th, :tw]
+        mask = (yy - cy) ** 2 + (xx - cx) ** 2 < r ** 2
+        tex[mask] += rng.choice([-18.0, 18.0])
+    return np.clip(tex, 5, 250).astype(np.float32)
+
+
+def make_room(seed: int = 0, size: float = 6.0, height: float = 3.0,
+              low_texture: bool = False) -> List[TexturedRect]:
+    """A closed box room + two interior boxes, all textured (near-blank
+    walls with low_texture=True)."""
     rng = np.random.default_rng(seed)
     s, h = size, height
     rects = []
@@ -99,7 +116,8 @@ def make_room(seed: int = 0, size: float = 6.0, height: float = 3.0) -> List[Tex
     def rect(o, eu, ev):
         rects.append(TexturedRect(
             origin=np.array(o, np.float64), eu=np.array(eu, np.float64),
-            ev=np.array(ev, np.float64), texture=_noise_texture(rng),
+            ev=np.array(ev, np.float64),
+            texture=_low_texture(rng) if low_texture else _noise_texture(rng),
         ))
 
     rect([-s / 2, h / 2, -s / 2], [s, 0, 0], [0, 0, s])      # floor
@@ -117,10 +135,12 @@ def make_room(seed: int = 0, size: float = 6.0, height: float = 3.0) -> List[Tex
     return rects
 
 
-def render_frame(rects: List[TexturedRect], T_cw: np.ndarray, intr: Intrinsics
+def render_frame(rects: List[TexturedRect], T_cw: np.ndarray, intr: Intrinsics,
+                 depth_noise: float = 0.0, rng: np.random.Generator | None = None
                  ) -> Tuple[np.ndarray, np.ndarray]:
     """Ray-cast one RGB-D frame: (gray [H,W] float32 0..255, depth [H,W]
-    float32 meters) at T_cw [7] (world->camera)."""
+    float32 meters) at T_cw [7] (world->camera).  depth_noise > 0 adds
+    Gaussian noise of that fraction of max(z, 1 m), drawn from rng."""
     H, W = intr.height, intr.width
     R_cw = quat_to_mat(np.asarray(T_cw[:4], np.float32)).astype(np.float64)
     t_cw = T_cw[4:7].astype(np.float64)
@@ -158,6 +178,9 @@ def render_frame(rects: List[TexturedRect], T_cw: np.ndarray, intr: Intrinsics
 
     # ray directions have camera z = 1, so the ray parameter is the depth
     depth = np.where(np.isfinite(best_t), best_t, 0.0).astype(np.float32)
+    if depth_noise > 0 and rng is not None:
+        noisy = depth + rng.normal(0, depth_noise, depth.shape) * np.maximum(depth, 1.0)
+        depth = np.where(depth > 0, np.maximum(noisy, 0.05), 0.0).astype(np.float32)
     return img, depth
 
 
@@ -219,15 +242,16 @@ class SyntheticSequence:
     intr: Intrinsics = None
 
 
-def make_sequence(n_frames: int = 30, intr: Intrinsics | None = None,
-                  seed: int = 0) -> SyntheticSequence:
-    """The reference's noise-free orbit sequence (same seeds and room)."""
+def make_sequence(n_frames: int = 30, intr: Intrinsics | None = None, seed: int = 0,
+                  depth_noise: float = 0.0, low_texture: bool = False) -> SyntheticSequence:
+    """The reference's orbit sequence: same seeds, room and noise draws."""
     intr = intr or Intrinsics(fx=525.0, fy=525.0, cx=319.5, cy=239.5, bf=40.0,
                               width=640, height=480)
-    rects = make_room(seed=seed)
+    rects = make_room(seed=seed, low_texture=low_texture)
     poses = orbit_trajectory(n_frames)
+    rng = np.random.default_rng(seed + 2)
     seq = SyntheticSequence(frames=[], poses_gt=poses,
                             timestamps=np.arange(n_frames) / 30.0, intr=intr)
     for i in range(n_frames):
-        seq.frames.append(render_frame(rects, poses[i], intr))
+        seq.frames.append(render_frame(rects, poses[i], intr, depth_noise, rng))
     return seq

@@ -129,8 +129,12 @@ class MapStore:
         self.pl_obs_count = np.zeros(L, np.int32)
         self.pl_ref_kf = np.full(L, -1, np.int32)
         self.pl_n_pts = np.zeros(L, np.int32)    # supporting inlier count
-        self.n_pl = 0   # planes are written by the planes slice; kept for
-                        # the checkpoint format
+        self.n_pl = 0
+        # plane-plane structural edges ("supposed plane" relations); a map
+        # checkpoint does not hold them, in either package
+        self.ppe_a = np.zeros(0, np.int32)
+        self.ppe_b = np.zeros(0, np.int32)
+        self.ppe_type = np.zeros(0, np.int32)  # 0 parallel, 1 perpendicular
         # monotonically increasing map version (bumped by any writer)
         self.version = 0
         # topology version: bumped only when the SET of keyframes / points /
@@ -181,6 +185,20 @@ class MapStore:
                     ("pt_visible", 1), ("pt_found", 1),
                 ])
                 self.cfg.max_points *= 2
+
+    def _ensure_pl_capacity(self):
+        if self.n_pl < self.cfg.max_planes:
+            return
+        with self.lock:
+            if self.n_pl < self.cfg.max_planes:
+                return
+            self._grow_rows([
+                ("pl_coef", 0.0), ("pl_valid", False), ("pl_obs_kf", -1),
+                ("pl_obs_pi", 0.0), ("pl_obs_w", 0.0), ("pl_obs_count", 0),
+                ("pl_ref_kf", -1), ("pl_n_pts", 0),
+            ])
+            self.pl_coef[self.cfg.max_planes:, 2] = 1.0
+            self.cfg.max_planes *= 2
 
     # ------------------------------------------------------------------
     # keyframes
@@ -363,6 +381,42 @@ class MapStore:
         self.pt_valid[old] = False
         self.version += 1
         self.topo_version += 1
+
+    # ------------------------------------------------------------------
+    # planes (each writer bumps `version`: the tracker's plane snapshot is
+    # cached on it)
+    # ------------------------------------------------------------------
+
+    def add_plane(self, coef, ref_kf: int, n_pts: int) -> int:
+        self._ensure_pl_capacity()
+        l = self.n_pl
+        self.pl_coef[l] = coef
+        self.pl_ref_kf[l] = ref_kf
+        self.pl_n_pts[l] = n_pts
+        self.pl_valid[l] = True
+        self.n_pl += 1
+        self.version += 1
+        return l
+
+    def add_plane_observation(self, l: int, kf: int, pi_cam=None, weight: float = 1.0):
+        c = self.pl_obs_count[l]
+        if c < self.pl_obs_kf.shape[1] and not (self.pl_obs_kf[l, :c] == kf).any():
+            self.pl_obs_kf[l, c] = kf
+            if pi_cam is not None:
+                self.pl_obs_pi[l, c] = pi_cam
+            self.pl_obs_w[l, c] = weight
+            self.pl_obs_count[l] = c + 1
+            self.version += 1
+
+    def add_plane_edge(self, a: int, b: int, etype: int):
+        """Structural parallel (0) / perpendicular (1) edge between planes."""
+        dup = (((self.ppe_a == a) & (self.ppe_b == b))
+               | ((self.ppe_a == b) & (self.ppe_b == a))).any()
+        if not dup:
+            self.ppe_a = np.append(self.ppe_a, np.int32(a))
+            self.ppe_b = np.append(self.ppe_b, np.int32(b))
+            self.ppe_type = np.append(self.ppe_type, np.int32(etype))
+            self.version += 1
 
     # ------------------------------------------------------------------
     # covisibility / local map queries

@@ -1,8 +1,10 @@
 """Local mapping: map-point culling, fusion, local BA, keyframe culling
-(port of spslam_tpu/mapping/local_mapper.py, point terms).
+(port of spslam_tpu/mapping/local_mapper.py).
 
-The BA window is assembled on the host from the MapStore into a padded
-fixed-shape BAProblem, solved on the device, and written back.
+The BA window (keyframes, points, the map planes the window observes, their
+observations and structural edges) is assembled on the host from the
+MapStore into a padded fixed-shape BAProblem, solved on the device, and
+written back.
 """
 
 from __future__ import annotations
@@ -112,8 +114,8 @@ class LocalMapper:
         return kf_ids, fixed_mask, pts
 
     def build_problem(self, kf: int):
-        """(BAProblem on the device, kf_ids, fixed_mask, pts, obs_src) for
-        the window around kf, or None when the window is too small."""
+        """(BAProblem on the device, kf_ids, fixed_mask, pts, obs_src, pl_ids)
+        for the window around kf, or None when the window is too small."""
         st = self.store
         cfg = self.cfg
         kf_ids, fixed_mask, pts = self._assemble_window(kf)
@@ -165,13 +167,7 @@ class LocalMapper:
         pt_obs[rows, cum[rows, cols] - 1] = np.arange(n_obs_used, dtype=np.int32)
         obs_src = (pts[rows], k_sel, s_sel)
 
-        # plane rows stay padding: map planes come with the planes slice
-        if st.pl_valid.any():
-            raise NotImplementedError("map planes in local BA come with the planes slice")
-        L, Q, E = cfg.ba_max_planes, cfg.ba_max_plane_obs, cfg.ba_max_pp_edges
-        planes = np.zeros((L, 4), np.float32)
-        planes[:, 2] = 1.0
-        pobs_pi = np.tile(np.array([0, 0, 1, 0], np.float32), (Q, 1))
+        planes, plane_valid, pobs, pp, pl_ids = self._window_planes(kf_to_idx)
 
         def dev(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -182,33 +178,83 @@ class LocalMapper:
             obs_cam=dev(obs_cam), obs_pt=dev(obs_pt), obs_uv=dev(obs_uv),
             obs_ur=dev(obs_ur), obs_inv_sigma2=octave_inv_sigma2(dev(obs_oct)),
             obs_valid=dev(obs_valid), pt_obs=dev(pt_obs),
-            planes=dev(planes), plane_valid=dev(np.zeros(L, bool)),
-            pobs_cam=dev(np.zeros(Q, np.int32)), pobs_plane=dev(np.zeros(Q, np.int32)),
-            pobs_pi=dev(pobs_pi), pobs_w=dev(np.zeros(Q, np.float32)),
-            pobs_valid=dev(np.zeros(Q, bool)),
-            pp_a=dev(np.zeros(E, np.int32)), pp_b=dev(np.zeros(E, np.int32)),
-            pp_type=dev(np.zeros(E, np.int32)), pp_w=dev(np.zeros(E, np.float32)),
-            pp_valid=dev(np.zeros(E, bool)),
+            planes=dev(planes), plane_valid=dev(plane_valid),
+            **{k: dev(v) for k, v in {**pobs, **pp}.items()},
         )
-        return prob, kf_ids, fixed_mask, pts, obs_src
+        return prob, kf_ids, fixed_mask, pts, obs_src, pl_ids
+
+    def _window_planes(self, kf_to_idx: np.ndarray):
+        """Map planes observed from the window's keyframes (up to
+        ba_max_planes), their observations (up to ba_max_plane_obs) and the
+        structural edges among them (up to ba_max_pp_edges), padded: padding
+        planes and observations are [0, 0, 1, 0]."""
+        st = self.store
+        cfg = self.cfg
+        L, Q, E = cfg.ba_max_planes, cfg.ba_max_plane_obs, cfg.ba_max_pp_edges
+        planes = np.zeros((L, 4), np.float32)
+        planes[:, 2] = 1.0
+        plane_valid = np.zeros(L, bool)
+        pobs = dict(
+            pobs_cam=np.zeros(Q, np.int32), pobs_plane=np.zeros(Q, np.int32),
+            pobs_pi=np.tile(np.array([0, 0, 1, 0], np.float32), (Q, 1)),
+            pobs_w=np.zeros(Q, np.float32), pobs_valid=np.zeros(Q, bool),
+        )
+        pl_ids = []
+        q = 0
+        for l in np.nonzero(st.pl_valid)[0]:
+            obs_in_window = [j for j in range(st.pl_obs_count[l])
+                             if kf_to_idx[st.pl_obs_kf[l, j]] >= 0]
+            if not obs_in_window or len(pl_ids) >= L:
+                continue
+            li = len(pl_ids)
+            pl_ids.append(int(l))
+            planes[li] = st.pl_coef[l]
+            plane_valid[li] = True
+            for j in obs_in_window:
+                if q >= Q:
+                    break
+                pobs["pobs_cam"][q] = kf_to_idx[st.pl_obs_kf[l, j]]
+                pobs["pobs_plane"][q] = li
+                pobs["pobs_pi"][q] = st.pl_obs_pi[l, j]
+                pobs["pobs_w"][q] = max(st.pl_obs_w[l, j], 1e-3)
+                pobs["pobs_valid"][q] = True
+                q += 1
+        pp = dict(pp_a=np.zeros(E, np.int32), pp_b=np.zeros(E, np.int32),
+                  pp_type=np.zeros(E, np.int32), pp_w=np.zeros(E, np.float32),
+                  pp_valid=np.zeros(E, bool))
+        pl_index = {l: i for i, l in enumerate(pl_ids)}
+        e = 0
+        for a, b, typ in zip(st.ppe_a, st.ppe_b, st.ppe_type):
+            if e >= E:
+                break
+            if int(a) in pl_index and int(b) in pl_index:
+                pp["pp_a"][e] = pl_index[int(a)]
+                pp["pp_b"][e] = pl_index[int(b)]
+                pp["pp_type"][e] = int(typ)
+                pp["pp_w"][e] = 10.0
+                pp["pp_valid"][e] = True
+                e += 1
+        return planes, plane_valid, pobs, pp, pl_ids
 
     def local_ba(self, kf: int):
         st = self.store
         built = self.build_problem(kf)
         if built is None:
             return
-        prob, kf_ids, fixed_mask, pts, obs_src = built
+        prob, kf_ids, fixed_mask, pts, obs_src, pl_ids = built
         res = bundle_adjust(prob, self.intr, stage1_iters=self.cfg.ba_stage1_iters,
                             stage2_iters=self.cfg.ba_stage2_iters)
         # fetch before taking the store lock
         new_poses = res.poses.cpu().numpy()
         new_points = res.points.cpu().numpy()
+        new_planes = res.planes.cpu().numpy()
         inl = res.obs_inlier.cpu().numpy()
         with st.lock:
             for i, k in enumerate(kf_ids):
                 if not fixed_mask[i]:
                     st.set_kf_pose(int(k), new_poses[i])
             st.pt_pos[pts] = new_points[: len(pts)]
+            st.pl_coef[pl_ids] = new_planes[: len(pl_ids)]
             src_p, src_k, _ = obs_src
             for ri in np.nonzero(~inl[: len(src_p)])[0]:
                 p = int(src_p[ri])

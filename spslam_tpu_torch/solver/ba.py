@@ -1,19 +1,26 @@
-"""Bundle adjustment with Schur landmark elimination (port of
-spslam_tpu/solver/ba.py, point terms).
+"""Joint point-plane-pose bundle adjustment with Schur landmark
+elimination (port of spslam_tpu/solver/ba.py).
 
-Fixed-shape problem (M poses, P points, R observations, all padded with
-validity masks), two LM stages with a chi2 gate in between, point blocks
-inverted in closed form and the reduced camera system solved densely.
+Fixed-shape problem (M poses, P points, R observations, L planes, Q plane
+observations, E plane-plane edges, all padded with validity masks), two LM
+stages with a chi2 gate in between, point blocks inverted in closed form,
+and the reduced camera + plane system (6M + 3L) solved densely.  Planes are
+vertices in the (azimuth, elevation, d) chart; pose-plane edges and
+parallel / perpendicular structural edges add to the reduced system.
 
-Plane terms: the problem keeps the reference's plane fields and the
-reduced system keeps its 3L plane rows, but this slice does not port the
-plane Jacobians.  `bundle_adjust` refuses valid plane rows; with none, the
-plane rows are pinned (diagonal 1, right-hand side 0) and contribute
-exactly zero, as in the reference.
+Plane Jacobians are forward-mode autodiff of the residual under a stacked
+perturbation (`torch.func.jacfwd` under `torch.func.vmap`), as the
+reference takes them with `jax.jacfwd` under `jax.vmap`.  Near the chart's
+pole they are huge in both (the padding plane [0, 0, 1, 0] retracts to a
+normal 4.4e-8 off +z: an azimuth derivative of ~-2.3e7).  Invalid rows are
+routed to a dump row of the system (a mask by x0 would keep a NaN or an
+inf), and a Cholesky factorization that fails gives NaN, as JAX's does,
+so such a step is rejected alike.
 
-Differences in summation order: the camera blocks are scatter-added
-(`index_put_(accumulate=True)`; on CUDA these are atomics whose order
-varies between runs), where the reference contracts one-hot matrices.
+Differences in summation order: the camera and plane blocks are
+scatter-added (`index_put_(accumulate=True)`; on CUDA these are atomics
+whose order varies between runs), where the reference contracts one-hot
+matrices for the camera blocks.
 """
 
 from __future__ import annotations
@@ -21,9 +28,11 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.func import jacfwd, vmap
 
 from ..geometry.camera import Intrinsics
 from ..geometry.lie import quat_rotate, quat_to_mat, se3_q, se3_retract, se3_t
+from ..geometry.plane import plane_error, plane_retract, transform_plane
 from .robust import CHI2_2D, CHI2_3D, huber_weight
 
 
@@ -113,6 +122,48 @@ def _point_residuals(poses, points, prob: BAProblem, intr: Intrinsics):
                                prob.obs_ur, prob.obs_inv_sigma2, intr)
 
 
+def _plane_obs_resid(z, T, piw, piobs):
+    """Pose-plane observation residual [3] in the chart under the stacked
+    perturbation z = (xi [6], dpl [3])."""
+    pred = transform_plane(se3_retract(T, z[..., :6]), plane_retract(piw, z[..., 6:9]))
+    return plane_error(piobs, pred)
+
+
+def _plane_obs_residuals(poses, planes, prob: BAProblem, with_jac: bool = True):
+    """e [Q,3], J_c [Q,3,6], J_pl [Q,3,3], chi2 [Q] of the pose-plane
+    observations (J_c, J_pl None unless with_jac)."""
+    T = poses[prob.pobs_cam.long()]
+    piw = planes[prob.pobs_plane.long()]
+    z = torch.zeros(T.shape[0], 9, dtype=poses.dtype, device=poses.device)
+    e = _plane_obs_resid(z, T, piw, prob.pobs_pi)
+    chi2 = torch.sum(e * e, dim=-1) * prob.pobs_w
+    if not with_jac:
+        return e, None, None, chi2
+    J = vmap(jacfwd(_plane_obs_resid))(z, T, piw, prob.pobs_pi)   # [Q,3,9]
+    return e, J[..., :6], J[..., 6:9], chi2
+
+
+def _plane_plane_resid(da, db, pa, pb, typ):
+    """Structural edge residual [1]: parallel 1 - |na . nb|, perpendicular
+    na . nb, at the planes moved by da, db in the chart."""
+    dot = torch.sum(plane_retract(pa, da)[..., 0:3] * plane_retract(pb, db)[..., 0:3],
+                    dim=-1, keepdim=True)
+    return torch.where(typ[..., None] == 0, 1.0 - torch.abs(dot), dot)
+
+
+def _plane_plane_residuals(planes, prob: BAProblem, with_jac: bool = True):
+    """e [E,1], J_a [E,1,3], J_b [E,1,3] of the structural edges (J_a, J_b
+    None unless with_jac)."""
+    pa = planes[prob.pp_a.long()]
+    pb = planes[prob.pp_b.long()]
+    z = torch.zeros_like(pa[:, :3])
+    e = _plane_plane_resid(z, z, pa, pb, prob.pp_type)
+    if not with_jac:
+        return e, None, None
+    J_a, J_b = vmap(jacfwd(_plane_plane_resid, argnums=(0, 1)))(z, z, pa, pb, prob.pp_type)
+    return e, J_a, J_b
+
+
 def _scatter_block_add(S, rows, cols, blocks):
     """S[rows_i + a, cols_i + b] += blocks[i, a, b] (accumulating; invalid
     terms are sent to a dump row/col beyond the trimmed system)."""
@@ -159,10 +210,11 @@ def _inv3x3(A):
     return adj * inv_det[..., None, None]
 
 
-def _solve_ba_iteration(poses, points, prob: BAProblem, intr, lam, obs_w_extra):
-    """One damped GN step.  Returns (dx_poses [M,6], dp [P,3])."""
+def _solve_ba_iteration(poses, points, planes, prob: BAProblem, intr, lam, obs_w_extra,
+                        pobs_w_extra):
+    """One damped GN step.  Returns (dx_poses [M,6], dp [P,3], dpl [L,3])."""
     M = poses.shape[0]
-    L = prob.planes.shape[0]
+    L = planes.shape[0]
     P = points.shape[0]
     dim = 6 * M + 3 * L
     DUMP = dim  # scratch rows/cols for masked scatter terms
@@ -208,9 +260,38 @@ def _solve_ba_iteration(poses, points, prob: BAProblem, intr, lam, obs_w_extra):
     Z = torch.einsum("pab,pbc->pac", Y, Hpp_inv)
     S[: 6 * M, : 6 * M] -= torch.einsum("pac,pbc->ab", Z, Y)
 
+    # --- plane observation edges (planes live in the reduced system) ----
+    ep, Jpc, Jppl, chi2p = _plane_obs_residuals(poses, planes, prob)
+    wq = (prob.pobs_w * huber_weight(chi2p, CHI2_3D) * pobs_w_extra
+          * prob.pobs_valid.to(e.dtype))
+    JpcW = Jpc * wq[:, None, None]
+    JpplW = Jppl * wq[:, None, None]
+    cam_q = torch.where(prob.pobs_valid, prob.pobs_cam.long() * 6, DUMP)
+    pl_q = torch.where(prob.pobs_valid, 6 * M + prob.pobs_plane.long() * 3, DUMP)
+    S = _scatter_block_add(S, cam_q, cam_q, torch.einsum("qai,qaj->qij", JpcW, Jpc))
+    S = _scatter_block_add(S, pl_q, pl_q, torch.einsum("qai,qaj->qij", JpplW, Jppl))
+    cross = torch.einsum("qai,qaj->qij", JpcW, Jppl)
+    S = _scatter_block_add(S, cam_q, pl_q, cross)
+    S = _scatter_block_add(S, pl_q, cam_q, cross.transpose(-1, -2))
+    b = _scatter_vec_add(b, cam_q, -torch.einsum("qai,qa->qi", JpcW, ep))
+    b = _scatter_vec_add(b, pl_q, -torch.einsum("qai,qa->qi", JpplW, ep))
+
+    # --- plane-plane structural edges -----------------------------------
+    epp, Ja, Jb = _plane_plane_residuals(planes, prob)
+    we = prob.pp_w * prob.pp_valid.to(e.dtype)
+    a_off = torch.where(prob.pp_valid, 6 * M + prob.pp_a.long() * 3, DUMP)
+    b_off = torch.where(prob.pp_valid, 6 * M + prob.pp_b.long() * 3, DUMP)
+    JaW = Ja * we[:, None, None]
+    JbW = Jb * we[:, None, None]
+    S = _scatter_block_add(S, a_off, a_off, torch.einsum("eai,eaj->eij", JaW, Ja))
+    S = _scatter_block_add(S, b_off, b_off, torch.einsum("eai,eaj->eij", JbW, Jb))
+    cr = torch.einsum("eai,eaj->eij", JaW, Jb)
+    S = _scatter_block_add(S, a_off, b_off, cr)
+    S = _scatter_block_add(S, b_off, a_off, cr.transpose(-1, -2))
+    b = _scatter_vec_add(b, a_off, -torch.einsum("eai,ea->ei", JaW, epp))
+    b = _scatter_vec_add(b, b_off, -torch.einsum("eai,ea->ei", JbW, epp))
+
     # --- trim dump, damp, pin fixed/invalid entries ---------------------
-    # (plane rows: all plane observations and edges are invalid here, see
-    # module doc, so their blocks are zero and plane_valid pins them)
     S = S[:dim, :dim]
     b = b[:dim]
     pose_free = prob.pose_valid & ~prob.pose_fixed
@@ -220,25 +301,35 @@ def _solve_ba_iteration(poses, points, prob: BAProblem, intr, lam, obs_w_extra):
     b = b * free
     S = S + torch.diag(lam * torch.diagonal(S) + 1e-6) + torch.diag(1.0 - free)
 
-    # cholesky_ex: no info check, so no host sync (a failed factorization
-    # gives NaNs and the step is rejected, as with the reference's cho_factor)
-    dx = torch.cholesky_solve(b[:, None], torch.linalg.cholesky_ex(S).L)[:, 0]
+    # cholesky_ex checks nothing on the host (no sync); a failed
+    # factorization is turned into NaNs on the device, as the reference's
+    # cho_factor gives them, so the step is rejected
+    L_fac, info = torch.linalg.cholesky_ex(S)
+    L_fac = torch.where(info == 0, L_fac, float("nan"))
+    dx = torch.cholesky_solve(b[:, None], L_fac)[:, 0]
     dx_cam = dx[: 6 * M].reshape(M, 6)
+    dx_pl = dx[6 * M:].reshape(L, 3)
 
     # back-substitute landmarks: dp = Hpp^{-1}(bp - W^T dxc)
     Wt_dx = torch.einsum("poij,poi->pj", W_p, dx_cam[cam_p])
     dp = torch.einsum("pij,pj->pi", Hpp_inv, bp - Wt_dx)
-    return dx_cam, dp * prob.point_valid[:, None]
+    return dx_cam, dp * prob.point_valid[:, None], dx_pl
 
 
-def _total_cost(poses, points, prob, intr, obs_w_extra):
+def _huber_cost(chi2, delta2):
+    return torch.where(chi2 <= delta2, chi2,
+                       2.0 * torch.sqrt(delta2 * torch.clamp_min(chi2, 1e-12)) - delta2)
+
+
+def _total_cost(poses, points, planes, prob, intr, obs_w_extra, pobs_w_extra):
     _, _, _, chi2 = _point_residuals(poses, points, prob, intr)
     delta2 = torch.where(prob.obs_ur >= 0, CHI2_3D, CHI2_2D)
-    rho = torch.where(
-        chi2 <= delta2, chi2,
-        2.0 * torch.sqrt(delta2 * torch.clamp_min(chi2, 1e-12)) - delta2,
-    )
-    return torch.sum(rho * prob.obs_valid * obs_w_extra)
+    c1 = torch.sum(_huber_cost(chi2, delta2) * prob.obs_valid * obs_w_extra)
+    _, _, _, chi2p = _plane_obs_residuals(poses, planes, prob, with_jac=False)
+    c2 = torch.sum(_huber_cost(chi2p, CHI2_3D) * prob.pobs_valid * pobs_w_extra)
+    epp, _, _ = _plane_plane_residuals(planes, prob, with_jac=False)
+    c3 = torch.sum(epp[:, 0] ** 2 * prob.pp_w * prob.pp_valid)
+    return c1 + c2 + c3
 
 
 def bundle_adjust(prob: BAProblem, intr: Intrinsics, stage1_iters: int = 5,
@@ -246,36 +337,40 @@ def bundle_adjust(prob: BAProblem, intr: Intrinsics, stage1_iters: int = 5,
     """Two-stage LM with a chi2 outlier gate in between (the reference's
     LocalBundleAdjustment schedule).  Fixed iteration counts, accept/reject
     by `torch.where`: no host sync inside the solve."""
-    if bool(prob.plane_valid.any() | prob.pobs_valid.any() | prob.pp_valid.any()):
-        raise NotImplementedError("plane terms in BA come with the planes slice")
 
-    def lm_stage(poses, points, n_iters, obs_w_extra):
+    def lm_stage(poses, points, planes, n_iters, obs_w_extra, pobs_w_extra):
         lam = torch.tensor(1e-4, dtype=torch.float32, device=poses.device)
-        cost = _total_cost(poses, points, prob, intr, obs_w_extra)
+        cost = _total_cost(poses, points, planes, prob, intr, obs_w_extra, pobs_w_extra)
         for _ in range(n_iters):
-            dxc, dp = _solve_ba_iteration(poses, points, prob, intr, lam, obs_w_extra)
+            dxc, dp, dpl = _solve_ba_iteration(poses, points, planes, prob, intr, lam,
+                                               obs_w_extra, pobs_w_extra)
             poses_new = se3_retract(poses, dxc)
             points_new = points + dp
-            c_new = _total_cost(poses_new, points_new, prob, intr, obs_w_extra)
+            planes_new = plane_retract(planes, dpl)
+            c_new = _total_cost(poses_new, points_new, planes_new, prob, intr, obs_w_extra,
+                                pobs_w_extra)
             better = c_new < cost
             poses = torch.where(better, poses_new, poses)
             points = torch.where(better, points_new, points)
+            planes = torch.where(better, planes_new, planes)
             lam = torch.where(better, lam * 0.5, lam * 4.0)
             cost = torch.where(better, c_new, cost)
-        return poses, points
+        return poses, points, planes
 
-    ones_r = torch.ones_like(prob.obs_inv_sigma2)
-    poses, points = lm_stage(prob.poses, prob.points, stage1_iters, ones_r)
+    def gates(poses, points, planes):
+        _, _, _, chi2 = _point_residuals(poses, points, prob, intr)
+        _, _, _, chi2p = _plane_obs_residuals(poses, planes, prob, with_jac=False)
+        return (chi2 <= delta2) & prob.obs_valid, (chi2p <= CHI2_3D) & prob.pobs_valid
 
-    _, _, _, chi2 = _point_residuals(poses, points, prob, intr)
     delta2 = torch.where(prob.obs_ur >= 0, CHI2_3D, CHI2_2D)
-    obs_inl = (chi2 <= delta2) & prob.obs_valid
-    poses, points = lm_stage(poses, points, stage2_iters, obs_inl.to(torch.float32))
-
-    _, _, _, chi2 = _point_residuals(poses, points, prob, intr)
-    obs_inl = (chi2 <= delta2) & prob.obs_valid
-    cost = _total_cost(poses, points, prob, intr, obs_inl.to(torch.float32))
-    return BAResult(
-        poses=poses, points=points, planes=prob.planes, obs_inlier=obs_inl,
-        pobs_inlier=torch.zeros_like(prob.pobs_valid), cost=cost,
-    )
+    poses, points, planes = lm_stage(prob.poses, prob.points, prob.planes, stage1_iters,
+                                     torch.ones_like(prob.obs_inv_sigma2),
+                                     torch.ones_like(prob.pobs_w))
+    obs_inl, pobs_inl = gates(poses, points, planes)
+    poses, points, planes = lm_stage(poses, points, planes, stage2_iters,
+                                     obs_inl.to(torch.float32), pobs_inl.to(torch.float32))
+    obs_inl, pobs_inl = gates(poses, points, planes)
+    cost = _total_cost(poses, points, planes, prob, intr, obs_inl.to(torch.float32),
+                       pobs_inl.to(torch.float32))
+    return BAResult(poses=poses, points=points, planes=planes, obs_inlier=obs_inl,
+                    pobs_inlier=pobs_inl, cost=cost)

@@ -1,8 +1,8 @@
-"""Motion-only pose optimization (port of spslam_tpu/solver/pose_opt.py,
-point terms; the joint point+plane version comes with the planes slice).
+"""Motion-only pose optimization (port of spslam_tpu/solver/pose_opt.py).
 
 LM on one SE(3) vertex with mono + virtual-right reprojection rows, Huber
-kernel and the reference's chi2 re-gating rounds.
+kernel and the reference's chi2 re-gating rounds; the joint version adds
+plane-to-plane rows (SP-SLAM's tracking plane edges).
 
 Early exit: the reference's inner loop is a `lax.while_loop` that stops
 once an accepted step is tiny (step2 <= 1e-10).  Testing that on the host
@@ -18,7 +18,7 @@ from typing import NamedTuple
 import torch
 
 from ..geometry.camera import Intrinsics
-from ..geometry.lie import quat_rotate, se3_q, se3_retract, se3_t
+from ..geometry.lie import hat, quat_rotate, se3_q, se3_retract, se3_t
 from .robust import CHI2_2D, CHI2_3D, huber_weight, solve6
 
 
@@ -65,6 +65,101 @@ def _residuals_and_jac(T_cw, pts_w, uv_obs, ur_obs, intr: Intrinsics):
     row_mask = torch.stack([torch.ones_like(depth_active), torch.ones_like(depth_active),
                            depth_active], -1)
     return e * row_mask, J * row_mask[..., None], z
+
+
+def _plane_residuals_and_jac(T_cw, pl_w, pl_obs_c, pl_w_valid):
+    """Plane-to-plane residuals [L,4] and Jacobians [L,4,6] wrt a left se3
+    perturbation.  pl_w: world planes; pl_obs_c: matched observations in
+    the camera frame, sign-aligned to the prediction n_c = R n_w,
+    d_c = d_w - n_c . t before differencing."""
+    n_c = quat_rotate(se3_q(T_cw)[None, :], pl_w[:, :3])
+    d_c = pl_w[:, 3] - torch.sum(n_c * se3_t(T_cw)[None, :], dim=-1)
+    flip = torch.sum(n_c * pl_obs_c[:, :3], dim=-1) < 0
+    obs = torch.where(flip[:, None], -pl_obs_c, pl_obs_c)
+    e = torch.cat([obs[:, :3] - n_c, (obs[:, 3] - d_c)[:, None]], dim=-1)
+    # e = obs - pred: dn_c/dphi = -[n_c]x, dd_c/drho = -n_c
+    skew = hat(n_c)
+    J_n = torch.cat([torch.zeros_like(skew), skew], dim=-1)
+    J_d = torch.cat([n_c, torch.zeros_like(n_c)], dim=-1)[:, None, :]
+    J = torch.cat([J_n, J_d], dim=-2)
+    m = pl_w_valid.to(e.dtype)
+    return e * m[:, None], J * m[:, None, None]
+
+
+# chi2 gate for the 4-dof plane residual at the working information weights
+CHI2_PLANE = 9.49  # 95% of chi2(4)
+
+
+def pose_optimization_joint(T_cw_init: torch.Tensor, pts_w: torch.Tensor,
+                            uv_obs: torch.Tensor, ur_obs: torch.Tensor,
+                            inv_sigma2: torch.Tensor, valid: torch.Tensor,
+                            pl_w: torch.Tensor, pl_obs_c: torch.Tensor,
+                            pl_valid: torch.Tensor, pl_info: torch.Tensor,
+                            intr: Intrinsics, n_rounds: int = 2,
+                            n_iters: int = 5) -> PoseOptResult:
+    """Joint point + plane motion-only LM: pose_optimization with the plane
+    rows of pl_w [L,4] / pl_obs_c [L,4] (valid where pl_valid) added to H
+    and b, weighted by pl_info [L]; plane outliers are re-gated between
+    rounds like points.  Fixed iteration counts (module doc)."""
+    delta2 = torch.where(ur_obs >= 0, CHI2_3D, CHI2_2D)
+    validf = valid.to(torch.float32)
+    pl_validf = pl_valid.to(torch.float32)
+    dev = pts_w.device
+    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+
+    def chi2s(T):
+        e, _, _ = _residuals_and_jac(T, pts_w, uv_obs, ur_obs, intr)
+        e_p, _ = _plane_residuals_and_jac(T, pl_w, pl_obs_c, pl_valid)
+        return torch.sum(e * e, dim=-1) * inv_sigma2, torch.sum(e_p * e_p, dim=-1) * pl_info
+
+    def cost(chi2, chi2_p, inliers, pl_inliers):
+        return (torch.sum(torch.minimum(chi2, delta2 * 10) * inliers * validf)
+                + torch.sum(torch.clamp_max(chi2_p, CHI2_PLANE * 10) * pl_inliers))
+
+    def lm_round(T, inliers, pl_inliers):
+        lam = torch.tensor(1e-3, dtype=torch.float32, device=dev)
+        active = torch.ones((), dtype=torch.bool, device=dev)
+        for _ in range(n_iters):
+            e, J, _ = _residuals_and_jac(T, pts_w, uv_obs, ur_obs, intr)
+            chi2 = torch.sum(e * e, dim=-1) * inv_sigma2
+            w = inv_sigma2 * huber_weight(chi2, delta2) * inliers * validf
+            Jw = J * w[:, None, None]
+            H = torch.einsum("nri,nrj->ij", Jw, J)
+            b = -torch.einsum("nri,nr->i", Jw, e)
+            e_p, J_p = _plane_residuals_and_jac(T, pl_w, pl_obs_c, pl_valid)
+            chi2_p = torch.sum(e_p * e_p, dim=-1) * pl_info
+            w_p = pl_info * huber_weight(chi2_p, CHI2_PLANE) * pl_inliers * pl_validf
+            Jpw = J_p * w_p[:, None, None]
+            H = H + torch.einsum("nri,nrj->ij", Jpw, J_p)
+            b = b - torch.einsum("nri,nr->i", Jpw, e_p)
+            H = H + lam * torch.diag(torch.diag(H)) + 1e-8 * eye6
+            dx = solve6(H, b)
+            T_new = se3_retract(T, dx)
+            better = (cost(*chi2s(T_new), inliers, pl_inliers)
+                      < cost(chi2, chi2_p, inliers, pl_inliers))
+            T = torch.where(active & better, T_new, T)
+            lam = torch.where(active, torch.where(better, lam * 0.5, lam * 4.0), lam)
+            step2 = torch.where(better, torch.sum(dx * dx), 1e9)
+            active = active & (step2 > 1e-10)
+        return T
+
+    T = T_cw_init
+    inliers = validf
+    pl_inl = pl_validf
+    for _ in range(n_rounds):
+        T = lm_round(T, inliers, pl_inl)
+        chi2, chi2_p = chi2s(T)
+        inliers = (chi2 <= delta2).to(torch.float32) * validf
+        pl_inl = (chi2_p <= CHI2_PLANE).to(torch.float32) * pl_validf
+
+    final_inl = inliers > 0
+    chi2, _ = chi2s(T)
+    return PoseOptResult(
+        T_cw=T,
+        inliers=final_inl,
+        n_inliers=torch.sum(final_inl, dtype=torch.int32),
+        chi2=torch.sum(torch.where(final_inl, chi2, 0.0)),
+    )
 
 
 def pose_optimization(T_cw_init: torch.Tensor, pts_w: torch.Tensor, uv_obs: torch.Tensor,

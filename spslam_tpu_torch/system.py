@@ -1,5 +1,6 @@
 """System facade: build the pipeline, feed RGB-D frames, save results
-(port of spslam_tpu/system.py, synchronous point-only mapping).
+(port of spslam_tpu/system.py, synchronous mapping; points, or points and
+planes with use_planes=True).
 
     sys_ = System(SystemConfig(intr=intr, enable_reloc=False))   # on CUDA
     for (gray, depth), ts in frames:
@@ -19,6 +20,7 @@ from .geometry import np_lie
 from .geometry.camera import Intrinsics
 from .map.store import SAVED_ARRAYS, MapConfig, MapStore
 from .mapping.local_mapper import LocalMapper, MapperConfig
+from .mapping.plane_mapper import PlaneMapper, PlaneMapperConfig
 from .tracking.tracker import Tracker, TrackerConfig, TrackState
 
 
@@ -40,14 +42,13 @@ class SystemConfig:
     local_ba: bool = True
     localization_only: bool = False
     vocab_path: str | None = None
-    plane_cfg: object = None
+    plane_cfg: PlaneMapperConfig | None = None
     depth_map_factor: float = 5000.0  # raw-depth divisor for integer datasets
 
 
 # features of the reference this port does not have yet, and the slice of
 # the port that brings each
 _LATER = (
-    ("use_planes", "the planes slice (slice 2)"),
     ("use_loop", "the loop-closure and relocalization slice (slice 3)"),
     ("enable_reloc", "the loop-closure and relocalization slice (slice 3); "
                      "pass enable_reloc=False"),
@@ -71,6 +72,16 @@ class System:
         self.tracker = Tracker(cfg.tracker, cfg.intr, self.store, device=self.device)
         self.tracker.depth_factor = cfg.depth_map_factor
         self.mapper = LocalMapper(cfg.mapper, cfg.intr, self.store, device=self.device)
+        self.plane_mapper = None
+        if cfg.use_planes:
+            # plane accuracy is sensitive to keyframe cadence, which a deeper
+            # pipeline shifts: the reference caps the depth at 2 with planes
+            self.tracker.pipeline_depth = min(self.tracker.pipeline_depth, 2)
+            self.plane_mapper = PlaneMapper(cfg.intr, self.store,
+                                            cfg.plane_cfg or PlaneMapperConfig(),
+                                            device=self.device)
+            self.plane_mapper.depth_factor = cfg.depth_map_factor
+            self.tracker.use_planes = True
         self.trajectory: list[tuple[float, np.ndarray]] = []
         self._rel_trajectory: list[tuple[float, int, np.ndarray]] = []
 
@@ -97,6 +108,8 @@ class System:
         self._rel_trajectory.append((ts, int(ref), T_rel))
         self.trajectory.append((ts, T))
         if rec.new_kf >= 0 and not self.cfg.localization_only:
+            if self.plane_mapper is not None and state == TrackState.OK:
+                self.plane_mapper.process_keyframe(rec.new_kf, rec.depth)
             self.mapper.process_keyframe(rec.new_kf, run_ba=self.cfg.local_ba)
 
     # -----------------------------------------------------------------

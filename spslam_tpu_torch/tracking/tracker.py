@@ -1,18 +1,21 @@
-"""Per-frame tracking (port of spslam_tpu/tracking/tracker.py, point branch).
+"""Per-frame tracking (port of spslam_tpu/tracking/tracker.py).
 
 `track_frame_step` is the whole per-frame device pipeline in one call:
 pose prediction from the two previous device-resident poses, frame build,
 coarse motion-model match + 2x5 LM, global descriptor fallback, tight
-local-map match + 4x10 LM, keyframe statistics, and the two packed output
-buffers.  It never synchronises with the host: no `.item()`, no boolean
-indexing, no data-dependent Python branch.
+local-map match + 4x10 LM, with planes on: plane segmentation of the depth
+upload, association with the map-plane snapshot and a 2x5 joint
+point+plane LM, then keyframe statistics and the two packed output
+buffers.  It has no `.item()`, no boolean indexing and no data-dependent
+Python branch; the one host sync is `torch.linalg.eigh`'s info check in
+the plane segmentation (twice per step on CUDA, planes on only).
 
 Divergences from the JAX step, each giving the same outputs:
 * the fallback is computed every frame and selected with `torch.where`
   (the reference skips it with `lax.cond` when the motion seed has >= 60
   inliers); a host `if` would sync in the middle of the step;
-* LM loops run their fixed iteration count under an `active` mask
-  (solver/pose_opt.py).
+* LM loops, the joint one too, run their fixed iteration count under an
+  `active` mask (solver/pose_opt.py).
 
 The `Tracker` class is the host shell: state machine, keyframe decision
 and insertion, the local-map snapshot cache and the software pipeline
@@ -36,11 +39,13 @@ from ..frontend.frame import FrameData, build_frame
 from ..geometry import np_lie
 from ..geometry.camera import Intrinsics, in_image
 from ..geometry.lie import quat_rotate, se3_compose, se3_inverse, se3_q, se3_t
+from ..geometry.plane import transform_plane
 from ..map.store import MapStore
 from ..ops.brief import to_int32_bits, unpack_bits
 from ..ops.match import TH_HIGH, TH_LOW, match_descriptors, search_by_projection
+from ..ops.plane_seg import segment_planes
 from ..ops.pyramid import PyramidSpec
-from ..solver.pose_opt import pose_optimization
+from ..solver.pose_opt import pose_optimization, pose_optimization_joint
 from ..solver.robust import octave_inv_sigma2
 
 
@@ -52,8 +57,7 @@ class TrackState(Enum):
 
 @dataclass(frozen=True)
 class TrackerConfig:
-    """Same fields and defaults as the reference's TrackerConfig; the
-    plane_* fields are read by the planes slice."""
+    """Same fields and defaults as the reference's TrackerConfig."""
 
     n_features: int = 1024
     n_levels: int = 8
@@ -76,12 +80,16 @@ class TrackerConfig:
     jump_gate_t: float = 0.25
     jump_gate_r: float = 0.35
     kf_queue_cap: int = 3
-    # in-flight fused dispatches before the oldest resolves
+    # in-flight fused dispatches before the oldest resolves (System caps
+    # it at 2 with planes on)
     pipeline_depth: int = 3
+    # tracking-level plane refinement (read when the Tracker's use_planes
+    # is set): information base per plane, scaled by its pixel support,
+    # and the association gates at the point-stage pose
     plane_info: float = 1e5
     plane_assoc_cos: float = 0.94
     plane_assoc_dist: float = 0.2
-    plane_min_support: int = 300
+    plane_min_support: int = 300   # pixels at the depth upload resolution
     # depth upload stride (keypoint depth lookup lands <= 1 px off at full res)
     depth_upload_stride: int = 2
     # urgent keyframe when the inlier count projected pipeline_depth frames
@@ -113,6 +121,9 @@ FALLBACK_SEED_GATE = 60
 # deferred map-point statistics are applied at keyframe churn or after this
 # many ordinary frames, whichever comes first
 STATS_FLUSH_FRAMES = 8
+
+# rows of the map-plane snapshot (top planes by support), a fixed shape
+PLANE_CAP = 64
 
 
 def project_points(T_cw, pos, normal, min_dist, max_dist, valid, intr: Intrinsics):
@@ -186,6 +197,56 @@ def _compact_pose_opt(T_init, pt_pos, uv_obs, ur_obs, inv_s2, matched,
     return opt_c._replace(inliers=inliers_full & matched)
 
 
+def _compact_joint_opt(T_init, pt_pos, uv_obs, ur_obs, inv_s2, matched,
+                       pl_w, pl_obs, pl_valid, pl_info,
+                       n_kp: int, intr: Intrinsics, n_rounds: int, n_iters: int):
+    """pose_optimization_joint over the matched point rows (compacted as in
+    _compact_pose_opt) plus the plane rows."""
+    sel = torch.argsort(torch.logical_not(matched).to(torch.int8), stable=True)[:n_kp]
+    opt_c = pose_optimization_joint(
+        T_init, pt_pos[sel], uv_obs[sel], ur_obs[sel], inv_s2[sel], matched[sel],
+        pl_w, pl_obs, pl_valid, pl_info, intr, n_rounds=n_rounds, n_iters=n_iters,
+    )
+    inliers_full = torch.zeros_like(matched)
+    inliers_full[sel] = opt_c.inliers
+    return opt_c._replace(inliers=inliers_full & matched)
+
+
+def _plane_refine(opt2, frame: FrameData, depth, full_height: int, match_idx, matched,
+                  pt_pos, pl_pack, intr: Intrinsics, plane_info: float,
+                  plane_assoc_cos: float, plane_assoc_dist: float, plane_min_support: int):
+    """Segment the frame's planes from the depth upload, associate them
+    with the map-plane snapshot pl_pack [PLANE_CAP, 5] (world coef | valid)
+    at the point-stage pose, and refine the pose jointly (2x5 LM)."""
+    s = full_height // depth.shape[0]
+    intr_d = intr._replace(fx=intr.fx / s, fy=intr.fy / s, cx=intr.cx / s, cy=intr.cy / s,
+                           width=intr.width // s, height=intr.height // s) if s > 1 else intr
+    fp = segment_planes(depth, intr_d)
+    pl_w = pl_pack[:, 0:4]
+    pl_wvalid = pl_pack[:, 4] > 0.5
+    pi_pred = transform_plane(opt2.T_cw, pl_w)                           # [L,4]
+    cos = torch.sum(pi_pred[:, None, :3] * fp.coef[None, :, :3], dim=-1)  # [L,K]
+    sgn = torch.where(cos >= 0, 1.0, -1.0)
+    dd = torch.abs(pi_pred[:, 3:4] - sgn * fp.coef[None, :, 3])
+    okm = (pl_wvalid[:, None] & fp.valid[None, :]
+           & (fp.n_inliers[None, :] >= plane_min_support)
+           & (torch.abs(cos) > plane_assoc_cos) & (dd < plane_assoc_dist))
+    score = torch.where(okm, torch.abs(cos), -1.0)
+    best = torch.argmax(score, dim=1)                                    # first max, as jnp
+    has_match = torch.take_along_dim(score, best[:, None], 1)[:, 0] > 0
+    obs = fp.coef[best] * torch.take_along_dim(sgn, best[:, None], 1)    # sign-aligned
+    # information proportional to the observed plane's pixel support
+    # (1000 px at the upload resolution is the nominal support)
+    sup = fp.n_inliers[best].to(torch.float32)
+    pl_info_vec = plane_info * torch.clamp(sup / 1000.0, 0.5, 8.0)
+    kp_j = torch.clamp_min(match_idx, 0).long()
+    return _compact_joint_opt(
+        opt2.T_cw, pt_pos, frame.uv[kp_j], torch.where(matched, frame.u_right[kp_j], -1.0),
+        octave_inv_sigma2(frame.octave[kp_j]), matched, pl_w, obs, has_match, pl_info_vec,
+        frame.uv.shape[0], intr, 2, 5,
+    )
+
+
 def decode_depth(frame_depth: torch.Tensor, depth_factor: float) -> torch.Tensor:
     """Depth in meters from float meters, or from raw integer units (u16
     raw depth travels as int16 bits)."""
@@ -201,13 +262,17 @@ def track_frame_step(frame_gray, frame_depth, T_prev, T_prev2, has_vel, pt_pack,
                      radius_motion: float, radius2: float, th_depth: float,
                      spec: PyramidSpec, intr: Intrinsics, n_features: int,
                      th_high: float = 20.0, th_low: float = 7.0,
-                     depth_factor: float = 5000.0):
+                     depth_factor: float = 5000.0, pl_pack=None,
+                     plane_info: float = 1e5, plane_assoc_cos: float = 0.94,
+                     plane_assoc_dist: float = 0.2, plane_min_support: int = 300):
     """One frame through the whole device pipeline (see module doc).
 
     frame_gray: [H, W] uint8 or float32; frame_depth: [h, w] float32 meters
     or raw integer units; T_prev/T_prev2: [7]; has_vel: bool tensor;
     pt_pack: [PL, 9] float32 (pos | normal | min_d | max_d | valid);
-    pt_desc: [PL, 8] int32 (uint32 bits).
+    pt_desc: [PL, 8] int32 (uint32 bits); pl_pack: None for point-only
+    tracking, else the map-plane snapshot [PLANE_CAP, 5] float32
+    (world coef | valid), which turns the plane refinement on.
 
     Returns (frame, out_small [12+PL] int32, out_big [10N] int32), the
     reference's uint32 layouts bit for bit (decode with unpack_track_small /
@@ -256,6 +321,10 @@ def track_frame_step(frame_gray, frame_depth, T_prev, T_prev2, has_vel, pt_pack,
         T_seed, pt_pos, pt_normal, pt_mind, pt_maxd, pt_bits, pt_valid,
         frame, radius2, TH_HIGH, intr, n_rounds=4, n_iters=10,
     )
+    if pl_pack is not None:
+        opt2 = _plane_refine(opt2, frame, depth, frame_gray.shape[0], match_idx, matched,
+                             pt_pos, pl_pack, intr, plane_info, plane_assoc_cos,
+                             plane_assoc_dist, plane_min_support)
     kp_idx = torch.clamp_min(match_idx, 0).long()
     kp_depth = frame.depth[kp_idx]
     close = (kp_depth > 1e-3) & (kp_depth < th_depth)
@@ -385,6 +454,9 @@ class Tracker:
         # raw-depth divisor, applied on device when integer depth is fed
         self.depth_factor = 5000.0
         self.n_fused = 0                           # frames through track_frame_step
+        # plane refinement in the fused step against a snapshot of the top
+        # PLANE_CAP map planes (System sets it with use_planes)
+        self.use_planes = False
         self._snapshot_cache = None
         self._ref_tracked_cache = None
         # deferred map-point statistics (ids_seen, ids_found) per frame
@@ -450,7 +522,7 @@ class Tracker:
         device->host copies of its outputs start right away."""
         cfg = self.cfg
         gray_t, depth_t = self._upload_frame(gray, depth)
-        ids, pack, desc = self._local_snapshot()
+        ids, pack, desc, pl_pack = self._local_snapshot()
         if self._chain is not None:
             T_prev, T_prev2, has_vel = self._chain[0], self._chain[1], True
         elif self.velocity is not None:
@@ -471,7 +543,9 @@ class Tracker:
             gray_t, depth_t, T_prev, T_prev2, self._hv[int(has_vel)], pack, desc,
             cfg.motion_search_radius, cfg.local_search_radius, cfg.th_depth,
             self.spec, self.intr, cfg.n_features, cfg.th_fast_high, cfg.th_fast_low,
-            depth_factor=self.depth_factor,
+            depth_factor=self.depth_factor, pl_pack=pl_pack,
+            plane_info=cfg.plane_info, plane_assoc_cos=cfg.plane_assoc_cos,
+            plane_assoc_dist=cfg.plane_assoc_dist, plane_min_support=cfg.plane_min_support,
         )
         self.n_fused += 1
         T_new = out_small[0:7].view(torch.float32)
@@ -614,10 +688,12 @@ class Tracker:
 
     # -----------------------------------------------------------------
     def _local_snapshot(self):
-        """(ids [PL], pack [PL,9], desc [PL,8] int32) of the local map around
-        ref_kf on the device.  The point-set selection depends only on map
-        topology (store.topo_version); value-only updates (store.version)
-        re-gather the same rows."""
+        """(ids [PL], pack [PL,9], desc [PL,8] int32, pl_pack) of the local
+        map around ref_kf on the device; pl_pack is the map-plane snapshot
+        [PLANE_CAP, 5] with planes on, else None.  The point-set selection
+        depends only on map topology (store.topo_version); value-only
+        updates (store.version, which every plane writer bumps) re-gather
+        the same rows."""
         st = self.store
         key_topo = (st.topo_version, self.ref_kf)
         cached = self._snapshot_cache
@@ -638,7 +714,8 @@ class Tracker:
     def _snapshot_gather(self, ids: np.ndarray, desc_cached=None):
         """Upload pack (+ desc unless the cached device copy is passed: for
         a fixed id set descriptors change only by the distinctive-descriptor
-        refresh, a topology change re-uploads them)."""
+        refresh, a topology change re-uploads them) and, with planes on, the
+        top PLANE_CAP valid map planes by support."""
         st = self.store
         sel = np.maximum(ids, 0)
         pack_np = np.concatenate(
@@ -655,7 +732,16 @@ class Tracker:
             desc_cached if desc_cached is not None
             else torch.from_numpy(st.pt_desc[sel].view(np.int32)).to(self.device)
         )
-        return torch.from_numpy(pack_np).to(self.device), desc
+        pl_pack = None
+        if self.use_planes:
+            pl_np = np.zeros((PLANE_CAP, 5), np.float32)
+            pls = np.nonzero(st.pl_valid)[0]
+            if len(pls) > PLANE_CAP:
+                pls = pls[np.argsort(-st.pl_n_pts[pls], kind="stable")[:PLANE_CAP]]
+            pl_np[: len(pls), 0:4] = st.pl_coef[pls]
+            pl_np[: len(pls), 4] = 1.0
+            pl_pack = torch.from_numpy(pl_np).to(self.device)
+        return torch.from_numpy(pack_np).to(self.device), desc, pl_pack
 
     def _local_snapshot_build(self):
         st = self.store
@@ -677,7 +763,7 @@ class Tracker:
     def _track(self, frame: FrameData, ts: float):
         """Robust synchronous tracking of an already-built frame."""
         cfg = self.cfg
-        ids, pack, desc = self._local_snapshot()
+        ids, pack, desc, _ = self._local_snapshot()
         pos, normal = pack[:, 0:3], pack[:, 3:6]
         mind, maxd = pack[:, 6], pack[:, 7]
         valid = pack[:, 8] > 0.5

@@ -11,7 +11,8 @@ reduced camera system is ill-conditioned along weakly observed point
 depths: after one LM step both float32 solvers already sit ~1e-4 m from a
 float64 solve of the same problem, and ten steps carry a few weakly
 constrained points apart by up to ~1e-3 m.  Masked plane rows contribute exactly zero: garbage in masked plane
-fields leaves the port's result bit-identical.  Fuse matches identical.
+fields leaves the port's result bit-identical; a live plane observation
+matches the reference to the same 1e-4 in the poses.  Fuse matches identical.
 """
 
 import jax.numpy as jnp
@@ -112,8 +113,9 @@ def test_bundle_adjust_point_only(seed):
     np.testing.assert_allclose(float(tres.cost), float(jres.cost), rtol=1e-3)
     # and BA did work: the noisy initial poses moved towards the truth
     assert float(tres.cost) < 0.5 * float(tba._total_cost(
-        t(d["poses"]), t(d["points"]), tba.BAProblem(**{k: t(v) for k, v in d.items()}),
-        TINTR, t(d["obs_valid"].astype(np.float32))))
+        t(d["poses"]), t(d["points"]), t(d["planes"]),
+        tba.BAProblem(**{k: t(v) for k, v in d.items()}), TINTR,
+        t(d["obs_valid"].astype(np.float32)), t(np.ones_like(d["pobs_w"]))))
 
 
 def test_masked_plane_rows_contribute_zero():
@@ -136,9 +138,15 @@ def test_masked_plane_rows_contribute_zero():
                            stage1_iters=4, stage2_iters=6)
     np.testing.assert_allclose(n(b.poses), n(jb.poses), rtol=0, atol=1e-4)
     np.testing.assert_array_equal(n(b.pobs_inlier), n(jb.pobs_inlier))
+    # one valid observation of a pinned (invalid) plane: a live plane row
+    # in the camera block, held against the reference
     g["pobs_valid"] = np.arange(len(g["pobs_valid"])) == 0
-    with pytest.raises(NotImplementedError):
-        tba.bundle_adjust(tba.BAProblem(**{k: t(v) for k, v in g.items()}), TINTR, 1, 1)
+    c = tba.bundle_adjust(tba.BAProblem(**{k: t(v) for k, v in g.items()}), TINTR, 2, 2)
+    jc = jba.bundle_adjust(jba.BAProblem(**{k: jnp.asarray(v) for k, v in g.items()}), JINTR,
+                           stage1_iters=2, stage2_iters=2)
+    np.testing.assert_allclose(n(c.poses), n(jc.poses), rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(n(c.pobs_inlier), n(jc.pobs_inlier))
+    np.testing.assert_array_equal(n(c.obs_inlier), n(jc.obs_inlier))
 
 
 def test_scatter_and_inverse_helpers():
