@@ -22,11 +22,16 @@ torch.backends.cudnn.allow_tf32 = False
 
 
 def resolve_device(device=None) -> torch.device:
-    """None means CUDA.  Raises if CUDA is asked for and absent."""
+    """None means CUDA.  Raises if CUDA is asked for and absent.  A CUDA
+    device gets its index (the current device when none is given), so a
+    worker thread can use it explicitly."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "spslam_tpu_torch: CUDA is not available; pass device='cpu' "
-            "explicitly to run the plain PyTorch path on the CPU"
-        )
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "spslam_tpu_torch: CUDA is not available; pass device='cpu' "
+                "explicitly to run the plain PyTorch path on the CPU"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -32,6 +32,15 @@ class Intrinsics(NamedTuple):
         return any(abs(v) > 0 for v in (self.k1, self.k2, self.p1, self.p2, self.k3))
 
 
+def project(intr: Intrinsics, xc: torch.Tensor) -> torch.Tensor:
+    """Camera-frame 3D points [..., 3] -> pixel coords [..., 2] (no
+    distortion: keypoints are undistorted)."""
+    z = torch.clamp_min(xc[..., 2:3], 1e-6)
+    u = intr.fx * xc[..., 0:1] / z + intr.cx
+    v = intr.fy * xc[..., 1:2] / z + intr.cy
+    return torch.cat([u, v], dim=-1)
+
+
 def unproject(intr: Intrinsics, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
     """Pixel coords [..., 2] + depth [...] -> camera-frame 3D [..., 3]."""
     d = depth[..., None]

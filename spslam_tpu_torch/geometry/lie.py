@@ -1,10 +1,17 @@
 """SO(3)/SE(3) operations on batched torch tensors (port of
-spslam_tpu/geometry/lie.py, the subset the point-only path calls).
+spslam_tpu/geometry/lie.py, the subset the port's paths call).
 
 Conventions as in the reference: quaternions ``[w, x, y, z]`` (Hamilton),
 SE(3) as 7-vectors ``[qw qx qy qz tx ty tz]`` mapping ``x -> R x + t``,
 tangent ``[rho(3), phi(3)]``.  Every function broadcasts over leading dims.
-Sim(3) comes with the loop-closure slice.
+RGB-D fixes the scale, so the loop path needs no Sim(3).
+
+Forward-mode autodiff (`torch.func.jacfwd`) goes through `so3_log` and
+`se3_log` at exactly zero rotation: the pose graph linearizes its
+structural edges at zero residual.  There the norm of the quaternion's
+vector part has no derivative, so `so3_log` feeds its unused branch a safe
+value (the double-`where` form): no NaN enters either branch's tangent, as
+none leaks out of `jnp.where` in the reference.
 """
 
 from __future__ import annotations
@@ -36,7 +43,9 @@ def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conj(q: torch.Tensor) -> torch.Tensor:
-    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    # the sign flip by concatenation: a constant tensor made from a list
+    # would be a blocking host->device copy at every call on CUDA
+    return torch.cat([q[..., 0:1], -q[..., 1:4]], dim=-1)
 
 
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -103,6 +112,19 @@ def so3_exp_quat(phi: torch.Tensor) -> torch.Tensor:
     return quat_normalize(torch.cat([w, k * phi], dim=-1))
 
 
+def so3_log(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion -> axis-angle vector [..., 3]."""
+    q = torch.where(q[..., 0:1] < 0, -q, q)
+    w = torch.clamp(q[..., 0:1], -1.0, 1.0)
+    v = q[..., 1:4]
+    n2 = torch.sum(v * v, dim=-1, keepdim=True)
+    small = n2 < 1e-18                      # the reference's norm(v) < 1e-9
+    n = torch.sqrt(torch.where(small, 1.0, n2))
+    theta = 2.0 * torch.atan2(n, w)
+    k = torch.where(small, 2.0 / torch.clamp_min(w, 1e-12), theta / torch.clamp_min(n, 1e-12))
+    return k * v
+
+
 def hat(v: torch.Tensor) -> torch.Tensor:
     x, y, z = v[..., 0], v[..., 1], v[..., 2]
     zero = torch.zeros_like(x)
@@ -120,6 +142,10 @@ def se3_t(T: torch.Tensor) -> torch.Tensor:
 
 def se3_make(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.cat([quat_normalize(q), t], dim=-1)
+
+
+def se3_apply(T: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return quat_rotate(se3_q(T), x) + se3_t(T)
 
 
 def se3_compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -162,3 +188,24 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
 def se3_retract(T: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     """Left-multiplicative retraction exp(xi) * T (the g2o SE3 update)."""
     return se3_compose(se3_exp(xi), T)
+
+
+def _solve3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x = A^{-1} b for batched 3x3 A by the adjugate: elementwise only, so
+    it runs under vmap/jacfwd and never syncs (the reference solves by LU)."""
+    a, bb, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    adj = torch.stack([
+        torch.stack([e * i - f * h, c * h - bb * i, bb * f - c * e], -1),
+        torch.stack([f * g - d * i, a * i - c * g, c * d - a * f], -1),
+        torch.stack([d * h - e * g, bb * g - a * h, a * e - bb * d], -1),
+    ], -2)
+    det = a * adj[..., 0, 0] + bb * adj[..., 1, 0] + c * adj[..., 2, 0]
+    return (adj @ b[..., None])[..., 0] / det[..., None]
+
+
+def se3_log(T: torch.Tensor) -> torch.Tensor:
+    phi = so3_log(se3_q(T))
+    rho = _solve3(_V_matrix(phi), se3_t(T))
+    return torch.cat([rho, phi], dim=-1)

@@ -214,21 +214,34 @@ def _mat_to_quat(m: np.ndarray) -> np.ndarray:
     return q / max(np.linalg.norm(q), 1e-12)
 
 
+def _pose_cw(cx, cy, cz, pitch, yaw) -> np.ndarray:
+    """T_cw [7] of a camera at (cx, cy, cz) turned by (pitch, yaw)."""
+    q = _so3_exp_quat(np.array([pitch, yaw, 0.0], np.float32))
+    Rcw = quat_to_mat(q).T
+    tcw = -Rcw @ np.array([cx, cy, cz])
+    return np.concatenate([_mat_to_quat(Rcw), tcw]).astype(np.float32)
+
+
 def orbit_trajectory(n_frames: int) -> np.ndarray:
     """Smooth arc inside the room with small rotations: [F, 7] T_cw."""
     poses = []
     for i in range(n_frames):
         a = 2.0 * np.pi * i / max(n_frames * 4, 1)  # quarter orbit over sequence
-        cx = 0.8 * np.sin(a)
-        cz = -1.0 + 0.3 * np.sin(2 * a)
-        cy = 0.15 * np.sin(3 * a)
-        yaw = 0.25 * np.sin(a * 2.0)
-        pitch = 0.08 * np.sin(a * 3.0)
-        q = _so3_exp_quat(np.array([pitch, yaw, 0.0], np.float32))
-        Rwc = quat_to_mat(q)
-        Rcw = Rwc.T
-        tcw = -Rcw @ np.array([cx, cy, cz])
-        poses.append(np.concatenate([_mat_to_quat(Rcw), tcw]).astype(np.float32))
+        poses.append(_pose_cw(0.8 * np.sin(a), 0.15 * np.sin(3 * a), -1.0 + 0.3 * np.sin(2 * a),
+                              0.08 * np.sin(a * 3.0), 0.25 * np.sin(a * 2.0)))
+    return np.stack(poses)
+
+
+def loop_trajectory(n_frames: int, turns: float = 1.25) -> np.ndarray:
+    """Yaw rotation in place (plus small sway) that overshoots a full turn,
+    so the last quarter of the sequence re-traverses the starting views (a
+    sustained revisit window for the loop detector's consistency chain).
+    The sway is periodic in the turn angle.  Returns [F, 7] T_cw."""
+    poses = []
+    for i in range(n_frames):
+        a = 2.0 * np.pi * turns * i / n_frames
+        poses.append(_pose_cw(0.4 * np.sin(a), 0.05 * np.sin(3 * a), -0.8 + 0.2 * np.sin(2 * a),
+                              0.03 * np.sin(2 * a), a))
     return np.stack(poses)
 
 
@@ -243,12 +256,14 @@ class SyntheticSequence:
 
 
 def make_sequence(n_frames: int = 30, intr: Intrinsics | None = None, seed: int = 0,
-                  depth_noise: float = 0.0, low_texture: bool = False) -> SyntheticSequence:
-    """The reference's orbit sequence: same seeds, room and noise draws."""
+                  depth_noise: float = 0.0, trajectory: str = "orbit",
+                  low_texture: bool = False) -> SyntheticSequence:
+    """The reference's sequences ("orbit" or "loop"): same seeds, room and
+    noise draws."""
     intr = intr or Intrinsics(fx=525.0, fy=525.0, cx=319.5, cy=239.5, bf=40.0,
                               width=640, height=480)
     rects = make_room(seed=seed, low_texture=low_texture)
-    poses = orbit_trajectory(n_frames)
+    poses = loop_trajectory(n_frames) if trajectory == "loop" else orbit_trajectory(n_frames)
     rng = np.random.default_rng(seed + 2)
     seq = SyntheticSequence(frames=[], poses_gt=poses,
                             timestamps=np.arange(n_frames) / 30.0, intr=intr)

@@ -142,6 +142,10 @@ class MapStore:
         # tracker's local-map snapshot skip recomputing covisibility and ids
         # on value-only updates and just re-gather the same rows
         self.topo_version = 0
+        # callbacks called with the keyframe id when a keyframe is erased
+        # (the loop closer's database drops it: culled keyframes stop being
+        # loop and relocalization candidates)
+        self.erase_kf_hooks: list = []
 
     # ------------------------------------------------------------------
     # capacity growth: indices stay stable, only the flat array objects are
@@ -246,6 +250,8 @@ class MapStore:
         self.kf_parent[children] = self.kf_parent[k]
         self.version += 1
         self.topo_version += 1
+        for hook in self.erase_kf_hooks:
+            hook(k)
 
     # ------------------------------------------------------------------
     # points

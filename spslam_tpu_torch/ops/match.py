@@ -7,17 +7,25 @@ Window/octave gates are masks on that matrix.
 
 argmin ties: distances are integers, so equal values are common; JAX takes
 the first index and so does `torch.argmin` (documented, CPU and CUDA).
-`rotation_consistency` is not here: the tracking path calls the matcher
-with check_rotation=False; it comes with relocalization.
+
+`rotation_consistency` (ORBmatcher's CheckOrientation) votes the matches'
+angle differences into a 30-bin histogram of integer counts, so equal bins
+are common; `lax.top_k` ranks them by the lower index, and so does the
+stable descending sort used here (`torch.topk` promises no tie order).
+The tracking path calls the matcher without angles (no rotation check);
+relocalization and the loop check pass them.
 """
 
 from __future__ import annotations
+
+import math
 
 from typing import NamedTuple
 
 import torch
 
 BIG = 1e9
+HISTO_BINS = 30
 
 # Reference-family thresholds (ORBmatcher.cc TH_LOW/TH_HIGH).
 TH_LOW = 50.0
@@ -47,12 +55,29 @@ def _top2(dist: torch.Tensor):
     return best, best_idx, second
 
 
+def rotation_consistency(angle_a: torch.Tensor, angle_b_matched: torch.Tensor,
+                         valid: torch.Tensor) -> torch.Tensor:
+    """Keep the matches whose angle difference falls in the 3 most popular
+    of 30 bins.  Returns the refined validity mask."""
+    diff = angle_a - angle_b_matched
+    frac = torch.remainder(diff / (2.0 * math.pi), 1.0)
+    bins = torch.clamp((frac * HISTO_BINS).to(torch.int32), 0, HISTO_BINS - 1)
+    onehot = torch.nn.functional.one_hot(bins.long(), HISTO_BINS).to(torch.float32)
+    hist = torch.sum(onehot * valid[:, None].to(torch.float32), dim=0)
+    top3 = torch.argsort(-hist, stable=True)[:3]
+    in_top3 = (bins.long()[:, None] == top3[None, :]).any(dim=-1)
+    return valid & in_top3
+
+
 def match_descriptors(bits_a: torch.Tensor, bits_b: torch.Tensor,
                       valid_a: torch.Tensor, valid_b: torch.Tensor,
+                      angles_a: torch.Tensor | None = None,
+                      angles_b: torch.Tensor | None = None,
                       max_dist: float = TH_LOW, ratio: float = 0.9,
+                      check_rotation: bool = True,
                       gate: torch.Tensor | None = None) -> MatchResult:
-    """Gated mutual-best matcher with a ratio test (check_rotation=False
-    form of the reference's match_descriptors)."""
+    """Gated mutual-best matcher with a ratio test; with both angle arrays
+    and check_rotation, the rotation-histogram check too."""
     d = hamming_matrix(bits_a, bits_b)
     mask = valid_a[:, None] & valid_b[None, :]
     if gate is not None:
@@ -65,6 +90,8 @@ def match_descriptors(bits_a: torch.Tensor, bits_b: torch.Tensor,
     rows = torch.arange(d.shape[0], dtype=torch.int32, device=d.device)
     mutual = col_best_row[best_idx.long()] == rows
     ok = ok & mutual & valid_a
+    if check_rotation and angles_a is not None and angles_b is not None:
+        ok = rotation_consistency(angles_a, angles_b[best_idx.long()], ok)
     return MatchResult(
         idx=torch.where(ok, best_idx, -1),
         dist=torch.where(ok, best, BIG),
@@ -87,10 +114,15 @@ def window_gate(uv_a: torch.Tensor, uv_b: torch.Tensor, radius_a: torch.Tensor,
 def search_by_projection(proj_uv, proj_bits, proj_valid, proj_octave,
                          kp_uv, kp_bits, kp_valid, kp_octave, radius,
                          max_dist: float = TH_HIGH, ratio: float = 0.9,
-                         octave_slack: int = 1) -> MatchResult:
+                         octave_slack: int = 1, kp_angles: torch.Tensor | None = None,
+                         proj_angles: torch.Tensor | None = None,
+                         check_rotation: bool = True) -> MatchResult:
     """Projected map points (rows) against frame keypoints (cols) within
-    per-point windows — the reference's SearchByProjection."""
+    per-point windows — the reference's SearchByProjection.  The angle
+    arguments are keywords here (positional before `radius` in the
+    reference); without them there is no rotation check."""
     gate = window_gate(proj_uv, kp_uv, radius, proj_octave, kp_octave,
                        octave_slack=octave_slack)
-    return match_descriptors(proj_bits, kp_bits, proj_valid, kp_valid,
-                             max_dist=max_dist, ratio=ratio, gate=gate)
+    return match_descriptors(proj_bits, kp_bits, proj_valid, kp_valid, proj_angles, kp_angles,
+                             max_dist=max_dist, ratio=ratio, check_rotation=check_rotation,
+                             gate=gate)

@@ -15,7 +15,8 @@ pole they are huge in both (the padding plane [0, 0, 1, 0] retracts to a
 normal 4.4e-8 off +z: an azimuth derivative of ~-2.3e7).  Invalid rows are
 routed to a dump row of the system (a mask by x0 would keep a NaN or an
 inf), and a Cholesky factorization that fails gives NaN, as JAX's does,
-so such a step is rejected alike.
+so such a step is rejected alike.  torch.func is not thread-safe in
+forward mode, so the Jacobians go through `batched_jacfwd` (one lock).
 
 Differences in summation order: the camera and plane blocks are
 scatter-added (`index_put_(accumulate=True)`; on CUDA these are atomics
@@ -25,8 +26,10 @@ matrices for the camera blocks.
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
@@ -34,6 +37,19 @@ from ..geometry.camera import Intrinsics
 from ..geometry.lie import quat_rotate, quat_to_mat, se3_q, se3_retract, se3_t
 from ..geometry.plane import plane_error, plane_retract, transform_plane
 from .robust import CHI2_2D, CHI2_3D, huber_weight
+
+
+# torch.func's forward-mode AD levels are process-global and must be
+# released in LIFO order, so two threads may not run jacfwd at once (the
+# post-loop global BA runs on a worker beside the mapper's local BA and the
+# loop closer's pose graph): every batched Jacobian takes this lock
+_JACFWD_LOCK = threading.Lock()
+
+
+def batched_jacfwd(f, argnums, *args):
+    """vmap(jacfwd(f, argnums))(*args), one thread at a time."""
+    with _JACFWD_LOCK:
+        return vmap(jacfwd(f, argnums=argnums))(*args)
 
 
 class BAProblem(NamedTuple):
@@ -139,7 +155,7 @@ def _plane_obs_residuals(poses, planes, prob: BAProblem, with_jac: bool = True):
     chi2 = torch.sum(e * e, dim=-1) * prob.pobs_w
     if not with_jac:
         return e, None, None, chi2
-    J = vmap(jacfwd(_plane_obs_resid))(z, T, piw, prob.pobs_pi)   # [Q,3,9]
+    J = batched_jacfwd(_plane_obs_resid, 0, z, T, piw, prob.pobs_pi)   # [Q,3,9]
     return e, J[..., :6], J[..., 6:9], chi2
 
 
@@ -160,7 +176,7 @@ def _plane_plane_residuals(planes, prob: BAProblem, with_jac: bool = True):
     e = _plane_plane_resid(z, z, pa, pb, prob.pp_type)
     if not with_jac:
         return e, None, None
-    J_a, J_b = vmap(jacfwd(_plane_plane_resid, argnums=(0, 1)))(z, z, pa, pb, prob.pp_type)
+    J_a, J_b = batched_jacfwd(_plane_plane_resid, (0, 1), z, z, pa, pb, prob.pp_type)
     return e, J_a, J_b
 
 
@@ -301,12 +317,7 @@ def _solve_ba_iteration(poses, points, planes, prob: BAProblem, intr, lam, obs_w
     b = b * free
     S = S + torch.diag(lam * torch.diagonal(S) + 1e-6) + torch.diag(1.0 - free)
 
-    # cholesky_ex checks nothing on the host (no sync); a failed
-    # factorization is turned into NaNs on the device, as the reference's
-    # cho_factor gives them, so the step is rejected
-    L_fac, info = torch.linalg.cholesky_ex(S)
-    L_fac = torch.where(info == 0, L_fac, float("nan"))
-    dx = torch.cholesky_solve(b[:, None], L_fac)[:, 0]
+    dx = cho_solve(S, b)
     dx_cam = dx[: 6 * M].reshape(M, 6)
     dx_pl = dx[6 * M:].reshape(L, 3)
 
@@ -314,6 +325,18 @@ def _solve_ba_iteration(poses, points, planes, prob: BAProblem, intr, lam, obs_w
     Wt_dx = torch.einsum("poij,poi->pj", W_p, dx_cam[cam_p])
     dp = torch.einsum("pij,pj->pi", Hpp_inv, bp - Wt_dx)
     return dx_cam, dp * prob.point_valid[:, None], dx_pl
+
+
+def cho_solve(S: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """S^{-1} b by Cholesky without a host sync: `cholesky_ex` checks
+    nothing on the host, a failed factorization is turned into NaNs on the
+    device (as the reference's cho_factor gives them, so the step is
+    rejected), and the two triangular solves replace `cholesky_solve`,
+    which reads its info on the host."""
+    L_fac, info = torch.linalg.cholesky_ex(S)
+    L_fac = torch.where(info == 0, L_fac, float("nan"))
+    y = torch.linalg.solve_triangular(L_fac, b[:, None], upper=False)
+    return torch.linalg.solve_triangular(L_fac.mT, y, upper=True)[:, 0]
 
 
 def _huber_cost(chi2, delta2):
@@ -339,7 +362,7 @@ def bundle_adjust(prob: BAProblem, intr: Intrinsics, stage1_iters: int = 5,
     by `torch.where`: no host sync inside the solve."""
 
     def lm_stage(poses, points, planes, n_iters, obs_w_extra, pobs_w_extra):
-        lam = torch.tensor(1e-4, dtype=torch.float32, device=poses.device)
+        lam = torch.full((), 1e-4, dtype=torch.float32, device=poses.device)
         cost = _total_cost(poses, points, planes, prob, intr, obs_w_extra, pobs_w_extra)
         for _ in range(n_iters):
             dxc, dp, dpl = _solve_ba_iteration(poses, points, planes, prob, intr, lam,
@@ -374,3 +397,71 @@ def bundle_adjust(prob: BAProblem, intr: Intrinsics, stage1_iters: int = 5,
                        pobs_inl.to(torch.float32))
     return BAResult(poses=poses, points=points, planes=planes, obs_inlier=obs_inl,
                     pobs_inlier=pobs_inl, cost=cost)
+
+
+def refine_alternating(poses, pose_fixed, points, point_valid, obs_cam, obs_pt, obs_uv, obs_ur,
+                       obs_inv_sigma2, obs_valid, intr: Intrinsics, n_iters: int = 8):
+    """Alternating resection-intersection refinement, the settle before the
+    post-loop global BA's Newton stage: per iteration all per-point 3x3 GN
+    solves with the poses fixed, then all per-pose 6x6 solves with the
+    points fixed.  obs_valid is a float weight.  Returns (poses, points).
+
+    The batched solves are `torch.linalg.solve_ex`: no host check of the
+    factorization (`torch.linalg.solve` raises on a singular block, where
+    the reference's solve returns inf/NaN without a word)."""
+    M, P = poses.shape[0], points.shape[0]
+    dt, dev = poses.dtype, poses.device
+    free = (~pose_fixed).to(dt)
+    obs_pt_l, obs_cam_l = obs_pt.long(), obs_cam.long()
+    delta2 = torch.where(obs_ur >= 0, CHI2_3D, CHI2_2D)
+    eye3 = torch.eye(3, dtype=dt, device=dev)
+    eye6 = torch.eye(6, dtype=dt, device=dev)
+
+    def weights(chi2):
+        # gate wild residuals (points behind or near the camera plane)
+        sane = (chi2 < 1e4) & torch.isfinite(chi2)
+        return obs_inv_sigma2 * huber_weight(chi2, delta2) * obs_valid * sane
+
+    for _ in range(n_iters):
+        # intersection: points, poses fixed
+        e, _, J_p, chi2 = point_obs_residuals(poses, points, obs_cam, obs_pt, obs_uv, obs_ur,
+                                              obs_inv_sigma2, intr)
+        JpW = J_p * weights(chi2)[:, None, None]
+        Hpp = torch.zeros((P, 3, 3), dtype=dt, device=dev).index_add_(
+            0, obs_pt_l, torch.einsum("rai,raj->rij", JpW, J_p))
+        bp = torch.zeros((P, 3), dtype=dt, device=dev).index_add_(
+            0, obs_pt_l, -torch.einsum("rai,ra->ri", JpW, e))
+        # Marquardt damping relative to the diagonal scale
+        diag_p = torch.einsum("pii->p", Hpp) / 3.0
+        Hpp = Hpp + (0.05 * diag_p[:, None, None] + 1e-3) * eye3
+        dp = torch.linalg.solve_ex(Hpp, bp[..., None])[0][..., 0]
+        dp = torch.clamp(dp, -0.5, 0.5)
+        points = points + dp * point_valid[:, None]
+        # resection: poses, points fixed
+        e, J_c, _, chi2 = point_obs_residuals(poses, points, obs_cam, obs_pt, obs_uv, obs_ur,
+                                              obs_inv_sigma2, intr)
+        JcW = J_c * weights(chi2)[:, None, None]
+        Hcc = torch.zeros((M, 6, 6), dtype=dt, device=dev).index_add_(
+            0, obs_cam_l, torch.einsum("rai,raj->rij", JcW, J_c))
+        bc = torch.zeros((M, 6), dtype=dt, device=dev).index_add_(
+            0, obs_cam_l, -torch.einsum("rai,ra->ri", JcW, e))
+        diag_c = torch.einsum("mii->m", Hcc) / 6.0
+        Hcc = Hcc + (0.05 * diag_c[:, None, None] + 1e-3) * eye6
+        dx = torch.linalg.solve_ex(Hcc, bc[..., None])[0][..., 0] * free[:, None]
+        poses = se3_retract(poses, torch.clamp(dx, -0.2, 0.2))
+    return poses, points
+
+
+def build_point_obs_table(obs_pt, n_points: int, omax: int) -> np.ndarray:
+    """Host helper: per-point observation index table [P, OMAX] (-1 pad)
+    from obs_pt [R] (-1 for padding); observations beyond OMAX per point
+    are dropped.  Each point's row lists its observations in index order."""
+    obs_pt = np.asarray(obs_pt)
+    table = np.full((n_points, omax), -1, dtype=np.int32)
+    r = np.nonzero(obs_pt >= 0)[0]
+    r = r[np.argsort(obs_pt[r], kind="stable")]
+    p = obs_pt[r]
+    rank = np.arange(len(p)) - np.searchsorted(p, p, side="left")
+    keep = rank < omax
+    table[p[keep], rank[keep]] = r[keep]
+    return table

@@ -1,8 +1,9 @@
 """System facade: build the pipeline, feed RGB-D frames, save results
-(port of spslam_tpu/system.py, synchronous mapping; points, or points and
-planes with use_planes=True).
+(port of spslam_tpu/system.py, synchronous mapping): points, planes with
+use_planes=True, loop closure with use_loop=True, and relocalization with
+enable_reloc=True (the default, as in the reference).
 
-    sys_ = System(SystemConfig(intr=intr, enable_reloc=False))   # on CUDA
+    sys_ = System(SystemConfig(intr=intr, use_loop=True))   # on CUDA
     for (gray, depth), ts in frames:
         sys_.track_rgbd(gray, depth, ts)
     poses = sys_.poses(); sys_.shutdown()
@@ -11,6 +12,7 @@ planes with use_planes=True).
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -18,6 +20,8 @@ import numpy as np
 from . import resolve_device
 from .geometry import np_lie
 from .geometry.camera import Intrinsics
+from .loop.loop_closer import LoopCloser, LoopConfig
+from .loop.vocab import DEFAULT_VOCAB_PATH, Vocabulary
 from .map.store import SAVED_ARRAYS, MapConfig, MapStore
 from .mapping.local_mapper import LocalMapper, MapperConfig
 from .mapping.plane_mapper import PlaneMapper, PlaneMapperConfig
@@ -36,7 +40,7 @@ class SystemConfig:
     map: MapConfig = field(default_factory=MapConfig)
     use_planes: bool = False
     use_loop: bool = False
-    enable_reloc: bool = True     # the port's callers pass False (see System)
+    enable_reloc: bool = True     # keep the vocabulary and KFDB for relocalization
     gba_distributed: bool | None = None
     async_mapping: bool = False
     local_ba: bool = True
@@ -49,11 +53,11 @@ class SystemConfig:
 # features of the reference this port does not have yet, and the slice of
 # the port that brings each
 _LATER = (
-    ("use_loop", "the loop-closure and relocalization slice (slice 3)"),
-    ("enable_reloc", "the loop-closure and relocalization slice (slice 3); "
-                     "pass enable_reloc=False"),
     ("async_mapping", "a later slice (async mapping, tracking/pipeline.py)"),
+    ("gba_distributed", "slice 4 (the sharded global BA, parallel/dist_ba.py)"),
 )
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 class System:
@@ -72,16 +76,32 @@ class System:
         self.tracker = Tracker(cfg.tracker, cfg.intr, self.store, device=self.device)
         self.tracker.depth_factor = cfg.depth_map_factor
         self.mapper = LocalMapper(cfg.mapper, cfg.intr, self.store, device=self.device)
+        if cfg.use_planes or cfg.use_loop:
+            # plane accuracy and loop detection are sensitive to keyframe
+            # cadence, which a deeper pipeline shifts (at depth 3 the
+            # reference's consistency chain never completed on the loop
+            # sequence): the reference caps both at depth 2
+            self.tracker.pipeline_depth = min(self.tracker.pipeline_depth, 2)
         self.plane_mapper = None
         if cfg.use_planes:
-            # plane accuracy is sensitive to keyframe cadence, which a deeper
-            # pipeline shifts: the reference caps the depth at 2 with planes
-            self.tracker.pipeline_depth = min(self.tracker.pipeline_depth, 2)
             self.plane_mapper = PlaneMapper(cfg.intr, self.store,
                                             cfg.plane_cfg or PlaneMapperConfig(),
                                             device=self.device)
             self.plane_mapper.depth_factor = cfg.depth_map_factor
             self.tracker.use_planes = True
+        self.loop_closer = None
+        if cfg.use_loop or cfg.enable_reloc:
+            path = cfg.vocab_path
+            if path is None:
+                default = os.path.join(ROOT, DEFAULT_VOCAB_PATH)
+                path = default if os.path.exists(default) else None
+            vocab = Vocabulary(n_words=4096, device=self.device)
+            if path:
+                vocab.load(path)
+            self.loop_closer = LoopCloser(cfg.intr, self.store, vocab,
+                                          cfg=LoopConfig(gba_distributed=cfg.gba_distributed),
+                                          device=self.device)
+            self.tracker.relocalizer = (self.loop_closer.vocab, self.loop_closer.kfdb)
         self.trajectory: list[tuple[float, np.ndarray]] = []
         self._rel_trajectory: list[tuple[float, int, np.ndarray]] = []
 
@@ -111,12 +131,21 @@ class System:
             if self.plane_mapper is not None and state == TrackState.OK:
                 self.plane_mapper.process_keyframe(rec.new_kf, rec.depth)
             self.mapper.process_keyframe(rec.new_kf, run_ba=self.cfg.local_ba)
+            if self.loop_closer is not None:
+                # detect=False keeps the relocalization index without ever
+                # closing loops (use_loop=False)
+                if self.loop_closer.process_keyframe(rec.new_kf, detect=self.cfg.use_loop):
+                    # realign the tracker with the corrected map
+                    self.tracker.external_pose_correction(self.store.kf_pose[rec.new_kf])
+                    self.trajectory[-1] = (ts, self.tracker.T_cw.copy())
 
     # -----------------------------------------------------------------
     def poses(self) -> np.ndarray:
         """Per-frame T_cw through the CURRENT keyframe poses."""
         for rec in self.tracker.flush_pipeline():
             self._absorb(rec)
+        if self.loop_closer is not None:
+            self.loop_closer.wait_gba()  # land an in-flight global BA
         out = []
         for (ts, ref, T_rel), (_, T_abs) in zip(self._rel_trajectory, self.trajectory):
             if ref >= 0 and self.store.kf_valid[ref]:
@@ -132,6 +161,15 @@ class System:
             for (ts, _), T_cw in zip(self.trajectory, poses):
                 qw, qx, qy, qz, tx, ty, tz = np_lie.se3_inverse(T_cw)
                 f.write(f"{ts:.6f} {tx:.6f} {ty:.6f} {tz:.6f} {qx:.6f} {qy:.6f} {qz:.6f} {qw:.6f}\n")
+
+    def save_keyframe_trajectory_tum(self, path: str):
+        """TUM format, one line per valid keyframe."""
+        st = self.store
+        with open(path, "w") as f:
+            for k in np.nonzero(st.kf_valid[: st.n_kf])[0]:
+                qw, qx, qy, qz, tx, ty, tz = np_lie.se3_inverse(st.kf_pose[k])
+                f.write(f"{st.kf_ts[k]:.6f} {tx:.6f} {ty:.6f} {tz:.6f} "
+                        f"{qx:.6f} {qy:.6f} {qz:.6f} {qw:.6f}\n")
 
     # -----------------------------------------------------------------
     def save_map(self, path: str):
@@ -165,6 +203,15 @@ class System:
     def activate_localization_mode(self):
         self.cfg.localization_only = True
 
+    def deactivate_localization_mode(self):
+        self.cfg.localization_only = False
+
     def shutdown(self):
         for rec in self.tracker.flush_pipeline():
             self._absorb(rec)
+        lc = self.loop_closer
+        # one more global BA over the closed map, only when no solve is
+        # still in flight (two solves would race their merges)
+        if (lc is not None and lc.wait_gba() and lc.n_loops_closed > 0
+                and not self.cfg.localization_only):
+            lc._run_gba()

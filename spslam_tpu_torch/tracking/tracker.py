@@ -18,15 +18,19 @@ Divergences from the JAX step, each giving the same outputs:
   `active` mask (solver/pose_opt.py).
 
 The `Tracker` class is the host shell: state machine, keyframe decision
-and insertion, the local-map snapshot cache and the software pipeline
+and insertion, the local-map snapshot cache, relocalization against the
+loop closer's keyframe database, and the software pipeline
 (`process_pipelined`), whose device->host copies go to pinned host tensors
 with `non_blocking=True` and are awaited through one CUDA event per
-dispatch (on the CPU the same code runs synchronously).
+dispatch (on the CPU the same code runs synchronously).  A loop closure
+calls `external_pose_correction`, which drops the device pose chain at the
+next dispatch.
 """
 
 from __future__ import annotations
 
 import math
+import threading
 from dataclasses import dataclass
 from enum import Enum
 from typing import Optional
@@ -37,9 +41,10 @@ import torch
 from .. import resolve_device
 from ..frontend.frame import FrameData, build_frame
 from ..geometry import np_lie
-from ..geometry.camera import Intrinsics, in_image
+from ..geometry.camera import Intrinsics, in_image, unproject
 from ..geometry.lie import quat_rotate, se3_compose, se3_inverse, se3_q, se3_t
 from ..geometry.plane import transform_plane
+from ..loop.sim3 import draw_hypotheses, ransac_align
 from ..map.store import MapStore
 from ..ops.brief import to_int32_bits, unpack_bits
 from ..ops.match import TH_HIGH, TH_LOW, match_descriptors, search_by_projection
@@ -441,9 +446,18 @@ class Tracker:
         self.frame_id = 0
         self.last_inliers = 0
         self.metrics = []
-        # relocalization comes with the loop-closure slice; None means LOST
-        # frames stay LOST until tracking recovers on its own
+        # (Vocabulary, KeyFrameDatabase) of the loop closer, set by System
+        # (enable_reloc or use_loop); None means LOST frames stay LOST until
+        # tracking recovers on its own
         self.relocalizer = None
+        # hypothesis draw of the relocalization RANSAC: (valid [N] numpy) ->
+        # [256, 3] indices; an explicit generator seeded 23 where the
+        # reference splits PRNGKey(23); a test may replace it
+        self._reloc_gen = torch.Generator().manual_seed(23)
+        self.reloc_draw = lambda valid: draw_hypotheses(valid, self._reloc_gen)
+        # set (possibly from another thread) when a loop closure rewrote the
+        # current pose: the next dispatch rebuilds the device pose chain
+        self._pose_corrected = threading.Event()
         self.pipeline_depth = cfg.pipeline_depth
         self._pending: list[dict] = []
         self._chain = None                         # (T_N, T_{N-1}) device poses
@@ -476,6 +490,13 @@ class Tracker:
         with self.store.lock:
             np.add.at(self.store.pt_visible, seen, 1)
             np.add.at(self.store.pt_found, found, 1)
+
+    def external_pose_correction(self, T_cw: np.ndarray):
+        """A loop closure rewrote the current pose: reset the motion model
+        and the device prediction chain."""
+        self.T_cw = np.asarray(T_cw, np.float32).copy()
+        self.velocity = None
+        self._pose_corrected.set()
 
     # -----------------------------------------------------------------
     def _depth_meters(self, depth: np.ndarray) -> torch.Tensor:
@@ -523,6 +544,9 @@ class Tracker:
         cfg = self.cfg
         gray_t, depth_t = self._upload_frame(gray, depth)
         ids, pack, desc, pl_pack = self._local_snapshot()
+        if self._pose_corrected.is_set():
+            self._chain = None
+            self._pose_corrected.clear()
         if self._chain is not None:
             T_prev, T_prev2, has_vel = self._chain[0], self._chain[1], True
         elif self.velocity is not None:
@@ -896,10 +920,45 @@ class Tracker:
         return c1a or ((c1b or c1c) and c2)
 
     def _relocalize(self, frame: FrameData):
-        """Relocalization comes with the loop-closure slice (it needs the BoW
-        keyframe database); without a relocalizer there is none."""
-        if self.relocalizer is not None:
-            raise NotImplementedError("relocalization comes with the loop-closure slice")
+        """Global relocalization against the keyframe database: BoW
+        candidates, then descriptor matching (rotation-checked) and 3D-3D
+        Horn RANSAC per candidate (RGB-D has depth on both sides, so Horn
+        takes the role of the reference's EPnP).  Returns T_cw or None."""
+        if self.relocalizer is None:
+            return None
+        vocab, kfdb = self.relocalizer
+        if not vocab.trained:
+            return None
+        st = self.store
+        dev = self.device
+        valid = frame.valid.cpu().numpy()
+        bow = vocab.bow_vector(frame.desc.cpu().numpy().view(np.uint32)[valid])
+        cands = kfdb.query(bow, exclude=set(), min_score=0.01, max_results=5)
+        for cand, _score in cands:
+            if not st.kf_valid[cand]:
+                continue
+            bits_b = unpack_bits(torch.from_numpy(st.kf_desc[cand].view(np.int32)).to(dev))
+            valid_b = torch.from_numpy(st.kf_kp_valid[cand] & (st.kf_depth[cand] > 1e-3)).to(dev)
+            res = match_descriptors(
+                frame.bits, bits_b, frame.valid & frame.has_depth, valid_b,
+                frame.angle, torch.from_numpy(st.kf_angle[cand]).to(dev),
+                max_dist=64.0, ratio=0.85,
+            )
+            m = res.valid.cpu().numpy()
+            if m.sum() < 20:
+                continue
+            idx = np.maximum(res.idx.cpu().numpy(), 0)
+            pb = unproject(self.intr, torch.from_numpy(st.kf_uv[cand][idx]).to(dev),
+                           torch.from_numpy(st.kf_depth[cand][idx]).to(dev))
+            align = ransac_align(frame.xyz_cam, pb, res.valid, self.reloc_draw(m))
+            if int(align.n_inliers) < 20:
+                continue
+            # x_cand = T_ba x_frame  =>  T_cw_frame = T_ba^{-1} . T_cw_cand
+            T_cw = np_lie.se3_compose(np_lie.se3_inverse(align.T_ba.cpu().numpy()),
+                                      st.kf_pose[cand])
+            self.ref_kf = int(cand)
+            self.metrics.append(dict(frame=self.frame_id, state="RELOC", cand=int(cand)))
+            return T_cw
         return None
 
     def _insert_keyframe(self, frame: FrameData, ts, matches_pt_ids, match_kp_idx,

@@ -142,7 +142,7 @@ def test_default_device_is_cuda():
         System(SystemConfig(enable_reloc=False))
 
 
-@pytest.mark.parametrize("flag", ["use_loop", "enable_reloc", "async_mapping"])
+@pytest.mark.parametrize("flag", ["async_mapping", "gba_distributed"])
 def test_unported_features_refused(flag):
     kw = dict(enable_reloc=False)
     kw[flag] = True
