@@ -56,7 +56,33 @@
    frames, 4 blank frames, then frames 2-11 again) after the sync-tracking
    warm-up: asserts RELOC in the metrics, final state OK, the recovered
    pose within 0.3 m of truth and one kernel launch per frame.
-10. Prints the kernel table as one JSON line (launches counted over all
+10. Dist BA phase: parallel/dist_ba.dist_bundle_adjust at 256 keyframes,
+   32,768 points, 16 observations a point at most, in 4 shards on cuda:0
+   (a post-loop-shaped map: keyframes orbiting the points): the cost must
+   fall below 0.1x; D = 1 vs D = 4 on the card, poses within 1e-4; card vs
+   CPU on the CPU tests' problem (poses 1e-4, points 1e-3); the same run
+   through a world-size-1 NCCL group equal to the run without one (1e-4).
+   Prints ms per LM iteration by part, host syncs per iteration, the
+   all_reduce's bytes per iteration and time, and peak memory.
+11. Dist GBA phase: dist_global_bundle_adjust(n_shards=4, 4 x cuda:0) on a
+   copy of the loop path phase's map (finite, loop ATE re-read < 0.04 m),
+   and auto mode with GBA_MAX_Y_ELEMS lowered, which declines the sharded
+   solver on one card and settles 3x longer.
+12. Async path phase: System(async_mapping=True) on the 20-frame orbit:
+   ATE < 0.03 m, no LOST frame, every submitted keyframe processed, no
+   error logged by the mapping worker, one kernel launch per frame; ms
+   per call beside the synchronous path's.
+13. Dp phase: parallel/dp_eval.evaluate_sequences on the orbit of seeds 0
+   and 7 (two Systems on the card, deterministic algorithms on): each ATE
+   < 0.02 m, sequence 1 batched equal to alone to 1e-6, one launch per
+   frame per System; aggregate frames/s.
+14. Cli and native phase: a TUM-layout directory of the 20 frames written
+   with the script's own PNG writer, then `python -m spslam_tpu_torch.cli
+   --tum DIR --config DIR/settings.yaml --loop --async-mapping` in a
+   subprocess (exit 0, the JSON line with ATE < 0.04 m, one launch per
+   frame); the port's C++ library built in the checkout and the loop
+   phase's keyframe database native.
+15. Prints the kernel table as one JSON line (launches counted over all
    the paths' runs), the script's wall time, the card's name and power limit,
    and as the last line {"ok": true, "device": {...}}.
 
@@ -737,7 +763,7 @@ def loop_path_phase():
         raise AssertionError(f"{n_lost} LOST frames, the reference has {REF_LOOP_LOST}")
     if launches != len(frames):
         raise AssertionError(f"kernel launched {launches} times for {len(frames)} frames")
-    return dict(launches=launches, ate=ate, steady_ms=steady)
+    return dict(launches=launches, ate=ate, steady_ms=steady, system=sys_, seq=seq)
 
 
 def reloc_phase():
@@ -793,6 +819,508 @@ def reloc_phase():
     return dict(launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# The sharded BA, async mapping, data-parallel evaluation, CLI and native
+# library (the phases after the relocalization phase)
+# ---------------------------------------------------------------------------
+
+
+def _ba_problem(M, P, O, seed):
+    """A sharded-BA problem shaped like a map after a loop closure: M
+    keyframes on 1.25 turns of a 4 m circle, looking at its centre; P
+    points within 1.5 m of it, each seen by 2..O keyframes spread over up
+    to 90 degrees of the orbit from its reference keyframe on (0.5 px
+    noise, stereo coordinate); then the poses (all but the first) and the
+    points perturbed."""
+    import torch
+
+    from spslam_tpu_torch.geometry import lie, np_lie
+    from spslam_tpu_torch.geometry.camera import Intrinsics
+
+    intr = Intrinsics(fx=525.0, fy=525.0, cx=319.5, cy=239.5, bf=40.0, width=640, height=480)
+    rng = np.random.default_rng(seed)
+    th = 2.5 * np.pi * np.arange(M) / M
+    c = np.stack([4.0 * np.cos(th), 0.1 * np.sin(3 * th), 4.0 * np.sin(th)], -1)
+    z = -c / np.linalg.norm(c, axis=1, keepdims=True)               # look at the centre
+    x = np.cross(np.array([0.0, 1.0, 0.0]), z)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    R = np.stack([x, np.cross(z, x), z], 1)                          # rows: camera axes
+    q = lie.mat_to_quat(torch.from_numpy(R.astype(np.float32))).numpy()
+    T = np.concatenate([q, -np.einsum("mij,mj->mi", R, c)], -1).astype(np.float32)
+    r = 1.5 * np.sqrt(rng.uniform(0, 1, P))
+    a = rng.uniform(0, 2 * np.pi, P)
+    X = np.stack([r * np.cos(a), rng.uniform(-0.8, 0.8, P), r * np.sin(a)], -1).astype(np.float32)
+    ref = rng.integers(0, M, P)
+    L = rng.integers(2, O + 1, P)
+    step = rng.integers(1, max(M // (4 * O), 1) + 1, P)              # up to a quarter turn
+    pt = np.repeat(np.arange(P), L)
+    j = np.arange(len(pt)) - np.repeat(np.cumsum(L) - L, L)
+    cam = (ref[pt] + j * step[pt]) % M
+    Xc = np_lie.se3_apply(T[cam], X[pt])
+    u = intr.fx * Xc[:, 0] / Xc[:, 2] + intr.cx
+    v = intr.fy * Xc[:, 1] / Xc[:, 2] + intr.cy
+    ok = (Xc[:, 2] > 0.1) & (u > 0) & (u < 640) & (v > 0) & (v < 480)
+    pt, cam, Xc, u, v = pt[ok], cam[ok], Xc[ok], u[ok], v[ok]
+    uv = np.stack([u, v], -1) + rng.normal(0, 0.5, (len(u), 2))
+    ur = uv[:, 0] - intr.bf / Xc[:, 2] + rng.normal(0, 0.5, len(u))
+    noise = np.concatenate([rng.normal(0, 0.01, (M, 3)), rng.normal(0, 0.003, (M, 3))], -1)
+    noise[0] = 0
+    T0 = lie.se3_compose(lie.se3_exp(torch.from_numpy(noise.astype(np.float32))),
+                         torch.from_numpy(T)).numpy()
+    X0 = X + rng.normal(0, 0.03, X.shape).astype(np.float32)
+    fixed = np.zeros(M, bool)
+    fixed[0] = True
+    return intr, (T0, fixed, X0, cam.astype(np.int32), pt.astype(np.int64),
+                  uv.astype(np.float32), ur.astype(np.float32), np.ones(len(u), np.float32)), T
+
+
+def _line_problem(n_cams=5, n_pts=256, seed=7):
+    """The CPU tests' sharded-BA problem (tests/dist/test_dist_ba.py::
+    make_problem's geometry): n_cams keyframes 0.2 m apart along x turning
+    0.04 rad each, points 4-9 m ahead, 0.3 px noise, poses perturbed."""
+    import torch
+
+    from spslam_tpu_torch.geometry import lie, np_lie
+    from spslam_tpu_torch.geometry.camera import Intrinsics
+
+    intr = Intrinsics(fx=525.0, fy=525.0, cx=319.5, cy=239.5, bf=40.0, width=640, height=480)
+    rng = np.random.default_rng(seed)
+    i = np.arange(n_cams, dtype=np.float32)
+    xi = np.stack([0.2 * i, 0.01 * i, 0 * i, 0 * i, 0.04 * i, 0 * i], -1).astype(np.float32)
+    T = lie.se3_exp(torch.from_numpy(xi)).numpy()
+    X = np.stack([rng.uniform(-4, 4, n_pts), rng.uniform(-2, 2, n_pts),
+                  rng.uniform(4, 9, n_pts)], -1).astype(np.float32)
+    cam = np.repeat(np.arange(n_cams), n_pts)
+    pt = np.tile(np.arange(n_pts), n_cams)
+    Xc = np_lie.se3_apply(T[cam], X[pt])
+    u = intr.fx * Xc[:, 0] / Xc[:, 2] + intr.cx
+    v = intr.fy * Xc[:, 1] / Xc[:, 2] + intr.cy
+    ok = (u > 0) & (u < 640) & (v > 0) & (v < 480) & (Xc[:, 2] > 0.1)
+    cam, pt, Xc, u, v = cam[ok], pt[ok], Xc[ok], u[ok], v[ok]
+    uv = np.stack([u, v], -1) + rng.normal(0, 0.3, (len(u), 2))
+    ur = uv[:, 0] - intr.bf / Xc[:, 2] + rng.normal(0, 0.3, len(u))
+    noise = rng.normal(0, 0.03, (n_cams, 6)).astype(np.float32)
+    noise[0] = 0
+    T0 = lie.se3_compose(lie.se3_exp(torch.from_numpy(noise)), torch.from_numpy(T)).numpy()
+    X0 = X + rng.normal(0, 0.05, X.shape).astype(np.float32)
+    fixed = np.zeros(n_cams, bool)
+    fixed[0] = True
+    return intr, (T0, fixed, X0, cam.astype(np.int32), pt.astype(np.int64),
+                  uv.astype(np.float32), ur.astype(np.float32), np.ones(len(u), np.float32))
+
+
+def _syncs(fn):
+    """Host syncs (CUDA synchronize calls + aten::item) of one call."""
+    return sum(_profiled(fn)[1].values())
+
+
+def dist_ba_phase():
+    """dist_bundle_adjust on the card: 256 keyframes, 32,768 points, 16
+    observations a point at most, 4 shards on cuda:0."""
+    import socket
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from spslam_tpu_torch.parallel import dist_ba
+
+    M, P, O, D, ITERS = 256, 32768, 16, 4, 10
+    t0 = time.perf_counter()
+    intr, args, T_true = _ba_problem(M, P, O, seed=3)
+    prob = dist_ba.partition_problem(*args, n_shards=D, obs_per_point=O)
+    prob1 = dist_ba.partition_problem(*args, n_shards=1, obs_per_point=O)
+    n_obs = int(prob.obs_valid.sum())
+    print(f"  problem: {M} keyframes, {P} points, {n_obs} observations, {D} shards of "
+          f"{prob.points.shape[1]} points / {prob.obs_valid.shape[1]} rows (built and "
+          f"partitioned in {time.perf_counter() - t0:.1f} s)")
+    dev = torch.device("cuda", 0)
+    on4 = [dev] * D
+
+    def run(p, devices, n_iters, stats=None):
+        out = dist_ba.dist_bundle_adjust(p, intr, devices, n_iters=n_iters, stats=stats)
+        torch.cuda.synchronize()
+        return out
+
+    run(prob, on4, 1)                                   # warm-up (cuBLAS, cuSOLVER)
+    torch.cuda.reset_peak_memory_stats()
+    walls = {}
+    for n in (0, ITERS):
+        t1 = time.perf_counter()
+        out = run(prob, on4, n)
+        walls[n] = time.perf_counter() - t1
+    poses4, points4, cost4 = out
+    ms_iter = (walls[ITERS] - walls[0]) / ITERS * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    syncs_iter = (_syncs(lambda: run(prob, on4, ITERS)) - _syncs(lambda: run(prob, on4, 0))) / ITERS
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(prob, on4, ITERS)
+    groups = {"cholesky + triangular solves": ("potrf", "trsm", "trsv", "cholesky"),
+              "scatter-adds (index_add_)": ("index", "scatter"),
+              "einsum / matmul": ("gemm", "gemv", "bmm", "dot", "cutlass", "sm90")}
+    by = {k: 0.0 for k in groups}
+    rest, total = 0.0, 0.0
+    names = []
+    for e in prof.key_averages():
+        us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
+        if us <= 0 or "CUDA" not in str(e.device_type):
+            continue
+        total += us
+        names.append((us, e.key))
+        for k, pats in groups.items():
+            if any(p in e.key.lower() for p in pats):
+                by[k] += us
+                break
+        else:
+            rest += us
+    print(f"  dist BA on the card, D = {D} on cuda:0: cost {float(cost4):.1f}, {ms_iter:.3f} ms per "
+          f"LM iteration (host clock, {ITERS} iterations less 0), {walls[0] * 1e3:.1f} ms for the "
+          f"upload and first cost, device {total / 1e3 / ITERS:.3f} ms per iteration: "
+          + ", ".join(f"{k} {v / 1e3 / ITERS:.3f}" for k, v in by.items())
+          + f", other {rest / 1e3 / ITERS:.3f}; host syncs per iteration {syncs_iter:.1f}; peak "
+          f"memory {peak_gb:.2f} GB")
+    for us, name in sorted(names, reverse=True)[:6]:
+        print(f"    {us / 1e3 / ITERS:8.3f} ms/iter  {name[:100]}")
+    if not (torch.isfinite(poses4).all() and torch.isfinite(points4).all()):
+        raise AssertionError("dist BA on the card: non-finite result")
+    cost0 = float(run(prob, on4, 0)[2])
+    e0 = np.linalg.norm(args[0][:, 4:7] - T_true[:, 4:7], axis=1)
+    e1 = np.linalg.norm(poses4.cpu().numpy()[:, 4:7] - T_true[:, 4:7], axis=1)
+    # the noise floor: ~0.75 per observation (3 rows of 0.5 px noise)
+    print(f"  cost {cost0:.1f} -> {float(cost4):.1f} ({float(cost4) / n_obs:.3f} per observation); "
+          f"keyframe positions off truth, median / largest: {np.median(e0) * 1e3:.2f} / "
+          f"{e0.max() * 1e3:.2f} mm before, {np.median(e1) * 1e3:.2f} / {e1.max() * 1e3:.2f} after")
+    if not float(cost4) < 0.1 * cost0:
+        raise AssertionError("dist BA did not converge")
+
+    poses1, _, _ = run(prob1, [dev], ITERS)
+    d1 = float((poses1 - poses4).abs().max())
+    print(f"  D = 1 vs D = 4 on the card: poses max diff {d1:.2e} (bound 1e-4)")
+    if not d1 < 1e-4:
+        raise AssertionError("shard count changed the poses")
+
+    # card vs CPU on the CPU tests' problem; on the orbit at 8 keyframes x
+    # 512 points (weakly held, 4 mm from truth after BA) as information
+    for label, (intr_s, args_s), check in (
+            ("the CPU tests' 5 keyframes x 256 points", _line_problem(), True),
+            ("the orbit at 8 keyframes x 512 points", _ba_problem(8, 512, O, seed=4)[:2], False)):
+        small = dist_ba.partition_problem(*args_s, n_shards=D, obs_per_point=O)
+        pc, xc, _ = dist_ba.dist_bundle_adjust(small, intr_s, ["cpu"] * D, n_iters=ITERS)
+        pg, xg, _ = run(small, on4, ITERS)
+        pg2, xg2, _ = run(small, on4, ITERS)
+        # a point seen by one keyframe hangs on its one stereo depth (up to
+        # 9 m here): a 1-ulp jitter of the pixels moves it by up to 13.5 mm
+        # on the CPU alone, so the 1e-3 bound holds points seen twice or more
+        twice = torch.from_numpy((small.pt_obs >= 0).sum(-1) >= 2)
+        dx = (xg.cpu() - xc).abs().amax(-1)
+        dp_, dx_ = float((pg.cpu() - pc).abs().max()), float(dx[twice].max())
+        print(f"  card vs CPU, {label}: poses {dp_:.2e} (1e-4), points seen twice or more "
+              f"{dx_:.2e} (1e-3), seen once {float(dx[~twice].max()):.2e}; card vs card: poses "
+              f"{float((pg - pg2).abs().max()):.2e}, points {float((xg - xg2).abs().max()):.2e}")
+        if check and not (dp_ < 1e-4 and dx_ < 1e-3):
+            raise AssertionError("dist BA: card and CPU disagree")
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert dist_ba.init_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        backend = torch.distributed.get_backend()
+        stats = {}
+        pn, xn, cn = run(prob, on4, ITERS, stats)
+        buf = torch.zeros((6 * M + 1, 6 * M), device=dev)
+        for _ in range(3):
+            torch.distributed.all_reduce(buf)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(20):
+            torch.distributed.all_reduce(buf)
+        b.record()
+        b.synchronize()
+        ar_ms = a.elapsed_time(b) / 20
+    finally:
+        torch.distributed.destroy_process_group()
+    dn = float((pn - poses4).abs().max())
+    per_iter = (stats["all_reduce_bytes"] - 4) / ITERS
+    print(f"  world-size-1 {backend} group: poses vs no group {dn:.2e} (1e-4), "
+          f"{stats['all_reduce_calls']} all_reduce calls, {per_iter / 1e6:.3f} MB per iteration "
+          f"(S, b and the cost), all_reduce of the [{6 * M + 1}, {6 * M}] float32 buffer "
+          f"{ar_ms:.4f} ms (CUDA events, mean of 20)")
+    if backend != "nccl" or not dn < 1e-4 or stats["all_reduce_calls"] != 2 * ITERS + 1:
+        raise AssertionError("dist BA through the NCCL group disagrees")
+    return dict(ms_iter=ms_iter, ar_ms=ar_ms, syncs_iter=syncs_iter)
+
+
+def _trajectory_through(sys_, kf_pose):
+    """System.poses() with the keyframe poses of another store."""
+    from spslam_tpu_torch.geometry import np_lie
+
+    out = []
+    for (ts, ref, T_rel), (_, T_abs) in zip(sys_._rel_trajectory, sys_.trajectory):
+        ok = ref >= 0 and sys_.store.kf_valid[ref]
+        out.append(np_lie.se3_compose(T_rel, kf_pose[ref]) if ok else T_abs)
+    return np.stack(out)
+
+
+def dist_gba_phase(loop):
+    """The sharded global BA, and auto mode on one card, on copies of the
+    loop path phase's map."""
+    import torch
+
+    from spslam_tpu_torch.eval.ate import ate_rmse
+    from spslam_tpu_torch.solver import global_ba
+
+    sys_, seq = loop["system"], loop["seq"]
+    st = _store_copy(sys_.store)
+    n_pts = int(st.pt_valid.sum())
+    t0 = time.perf_counter()
+    ran = global_ba.dist_global_bundle_adjust(st, seq.intr, n_shards=4,
+                                              devices=[torch.device("cuda", 0)] * 4)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    ate = ate_rmse(_trajectory_through(sys_, st.kf_pose), seq.poses_gt)[0]
+    print(f"  dist_global_bundle_adjust(n_shards=4, 4 x cuda:0) on the loop map "
+          f"({int(st.kf_valid.sum())} keyframes, {n_pts} points): ran {ran}, {ms:.1f} ms, loop "
+          f"ATE after it {ate * 1e3:.3f} mm (before {loop['ate'] * 1e3:.3f})")
+    if not ran or not (np.isfinite(st.kf_pose).all() and np.isfinite(st.pt_pos).all()):
+        raise AssertionError("sharded global BA did not run or is not finite")
+    if not ate < 0.04:
+        raise AssertionError(f"loop ATE after the sharded global BA {ate} m >= 0.04 m")
+    st2 = _store_copy(sys_.store)
+    saved = global_ba.GBA_MAX_Y_ELEMS
+    global_ba.GBA_MAX_Y_ELEMS = 1000                    # the map is too big for the dense Y
+    try:
+        t0 = time.perf_counter()
+        newton = global_ba.global_bundle_adjust(st2, seq.intr, device="cuda")
+        torch.cuda.synchronize()
+        ms2 = (time.perf_counter() - t0) * 1e3
+    finally:
+        global_ba.GBA_MAX_Y_ELEMS = saved
+    ate2 = ate_rmse(_trajectory_through(sys_, st2.kf_pose), seq.poses_gt)[0]
+    print(f"  auto mode past GBA_MAX_Y_ELEMS on {torch.cuda.device_count()} card(s): Newton "
+          f"{newton} (the sharded solver declines with one device: 3x settle), {ms2:.1f} ms, "
+          f"loop ATE after it {ate2 * 1e3:.3f} mm")
+    if newton is not False or not np.isfinite(st2.kf_pose).all() or not ate2 < 0.04:
+        raise AssertionError("auto-mode global BA fallback failed")
+
+
+def async_path_phase(seq, sync_steady_ms):
+    """System(async_mapping=True) on the 20-frame orbit."""
+    import logging
+
+    import torch
+
+    from spslam_tpu_torch.eval.ate import ate_rmse
+    from spslam_tpu_torch.ops import fast_cuda
+    from spslam_tpu_torch.system import System, SystemConfig
+
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record)
+
+    logger = logging.getLogger("spslam_tpu_torch.tracking.pipeline")
+    handler = Keep(level=logging.WARNING)
+    logger.addHandler(handler)
+    try:
+        frames = _u8_u16(seq.frames)
+        sys_ = System(SystemConfig(intr=seq.intr, local_ba=True, enable_reloc=False,
+                                   async_mapping=True), device="cuda")
+        fast_cuda.LAUNCHES = 0
+        times = []
+        for (gray, depth), ts in zip(frames, seq.timestamps):
+            t1 = time.perf_counter()
+            sys_.track_rgbd(gray, depth, ts)
+            times.append(time.perf_counter() - t1)
+        sys_.shutdown()
+        torch.cuda.synchronize()
+        launches = fast_cuda.LAUNCHES
+    finally:
+        logger.removeHandler(handler)
+    pl = sys_.pipeline
+    poses = sys_.poses()
+    ate, _ = ate_rmse(poses, seq.poses_gt)
+    n_lost = sum(1 for m in sys_.tracker.metrics if m["state"] == "LOST")
+    steady = float(np.median(times[5:])) * 1e3
+    print(f"  async: ATE {ate * 1e3:.3f} mm, LOST {n_lost}, keyframes submitted "
+          f"{pl.n_submitted}, processed {pl.n_processed}, coalesced {pl.n_coalesced}, worker "
+          f"errors {len(records)}, kernel launches {launches}; median steady {steady:.3f} ms per "
+          f"track_rgbd call (frames 5..) vs {sync_steady_ms:.3f} synchronous (path phase)")
+    if records:
+        raise AssertionError(f"mapping worker logged: {records[0].getMessage()}")
+    if not ate < 0.03 or n_lost or pl.n_processed != pl.n_submitted or not pl.idle():
+        raise AssertionError("async path failed")
+    if launches != len(frames):
+        raise AssertionError(f"kernel launched {launches} times for {len(frames)} frames")
+    return dict(launches=launches, steady_ms=steady)
+
+
+def dp_phase(seq):
+    """evaluate_sequences: two Systems on the card (the 20-frame orbit of
+    seeds 0 and 7), frames round-robin."""
+    import copy
+    import warnings
+
+    import torch
+
+    from spslam_tpu_torch.io.synthetic import make_sequence
+    from spslam_tpu_torch.ops import fast_cuda
+    from spslam_tpu_torch.parallel.dp_eval import evaluate_sequences
+
+    seqs = [copy.copy(seq), make_sequence(n_frames=20, seed=7)]
+    for s in seqs:
+        s.frames = _u8_u16(s.frames)
+    # deterministic kernels, so that one sequence's run alone and in the
+    # batch can be compared to 1e-6 (atomic scatter-adds vary in order)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            fast_cuda.LAUNCHES = 0
+            results, fps = evaluate_sequences(seqs)
+            launches = fast_cuda.LAUNCHES
+            solo, solo_fps = evaluate_sequences(seqs[1:])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message).split(" does not have a deterministic")[0]
+                     for w in warned if "deterministic" in str(w.message)})
+    for r in results:
+        print(f"  dp {r.name} @ {r.device}: ATE {r.ate_rmse_m * 1e3:.3f} mm, {r.n_kf} keyframes, "
+              f"{r.n_pts} points")
+    diff = abs(results[1].ate_rmse_m - solo[0].ate_rmse_m)
+    print(f"  dp: 2 Systems on one card, {fps:.3f} frames/s aggregate (one System alone "
+          f"{solo_fps:.3f}), kernel launches {launches} for 40 frames, sequence 1 batched vs "
+          f"alone ATE diff {diff:.2e} (1e-6); ops without a deterministic kernel: {nondet or 'none'}")
+    if any(not r.ate_rmse_m < 0.02 for r in results) or not diff <= 1e-6:
+        raise AssertionError("dp evaluation failed")
+    if launches != 40:
+        raise AssertionError(f"kernel launched {launches} times for 40 frames")
+    return dict(launches=launches, fps=fps)
+
+
+def _write_png(path, img):
+    """A PNG (8-bit gray / RGB, or 16-bit gray) through zlib and struct;
+    rows filtered with types 0-4 in turn, so a reader meets all five."""
+    import struct
+    import zlib
+
+    img = np.asarray(img)
+    depth = 16 if img.dtype == np.uint16 else 8
+    ctype = 2 if img.ndim == 3 else 0
+    H, W = img.shape[:2]
+    x = img.astype(">u2").view(np.uint8) if depth == 16 else img.astype(np.uint8)
+    x = x.reshape(H, -1).astype(np.int32)
+    bpp = x.shape[1] // W
+    a = np.pad(x, ((0, 0), (bpp, 0)))[:, :-bpp]               # left
+    b = np.pad(x, ((1, 0), (0, 0)))[:-1]                       # up
+    c = np.pad(b, ((0, 0), (bpp, 0)))[:, :-bpp]                # up-left
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    preds = [0 * x, a, b, (a + b) >> 1, paeth]
+    kind = np.arange(H) % 5
+    rows = np.empty((H, 1 + x.shape[1]), np.uint8)
+    rows[:, 0] = kind
+    for k in range(5):
+        rows[kind == k, 1:] = (x - preds[k])[kind == k] & 255
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, depth, ctype, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def _write_tum_dir(root, seq):
+    """seq in TUM layout: rgb/ (RGB PNGs), depth/ (16-bit), the lists,
+    groundtruth.txt (T_wc) and a settings file with its camera."""
+    from spslam_tpu_torch.geometry import np_lie
+
+    for d in ("rgb", "depth"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    rgb_l, dep_l, gt_l = [], [], []
+    for (gray, depth), ts, T_cw in zip(_u8_u16(seq.frames), seq.timestamps, seq.poses_gt):
+        name = f"{ts:.6f}.png"
+        _write_png(os.path.join(root, "rgb", name), np.repeat(gray[..., None], 3, -1))
+        _write_png(os.path.join(root, "depth", name), depth)
+        rgb_l.append(f"{ts:.6f} rgb/{name}")
+        dep_l.append(f"{ts:.6f} depth/{name}")
+        qw, qx, qy, qz, tx, ty, tz = np_lie.se3_inverse(T_cw)
+        gt_l.append(f"{ts:.6f} {tx:.6f} {ty:.6f} {tz:.6f} {qx:.6f} {qy:.6f} {qz:.6f} {qw:.6f}")
+    for name, lines in (("rgb.txt", rgb_l), ("depth.txt", dep_l), ("groundtruth.txt", gt_l)):
+        with open(os.path.join(root, name), "w") as f:
+            f.write("# ts\n" + "\n".join(lines) + "\n")
+    i = seq.intr
+    with open(os.path.join(root, "settings.yaml"), "w") as f:
+        f.write(f"Camera.fx: {i.fx}\nCamera.fy: {i.fy}\nCamera.cx: {i.cx}\nCamera.cy: {i.cy}\n"
+                f"Camera.bf: {i.bf}\nCamera.width: {i.width}\nCamera.height: {i.height}\n"
+                "ThDepth: 3.2\nDepthMapFactor: 5000.0\nORBextractor.nFeatures: 1024\n"
+                "ORBextractor.nLevels: 8\nORBextractor.scaleFactor: 1.2\n"
+                "ORBextractor.iniThFAST: 20\nORBextractor.minThFAST: 7\n")
+
+
+# runs the CLI module as `python -m spslam_tpu_torch.cli` does, then prints
+# the kernel's launch count of that process
+_CLI = ("import runpy, sys; sys.argv[0] = 'spslam_tpu_torch.cli'; "
+        "runpy.run_module('spslam_tpu_torch.cli', run_name='__main__'); "
+        "from spslam_tpu_torch.ops import fast_cuda; print('B1_LAUNCHES', fast_cuda.LAUNCHES)")
+
+
+def cli_native_phase(seq, loop):
+    """The CLI on a TUM-layout directory (loop closing, async mapping) in a
+    subprocess, and the port's native library built on this machine."""
+    import tempfile
+
+    from spslam_tpu_torch.io.tum import load_tum_sequence
+    from spslam_tpu_torch.native import bindings
+
+    root = tempfile.mkdtemp(prefix="tum_")
+    try:
+        t0 = time.perf_counter()
+        _write_tum_dir(root, seq)
+        back = load_tum_sequence(root, os.path.join(root, "settings.yaml"))
+        same = all(np.array_equal(g, np.clip(g0, 0, 255).astype(np.uint8))
+                   for (g, _), (g0, _) in zip(back.frames, seq.frames))
+        print(f"  wrote and read back {len(back.frames)} TUM frames in "
+              f"{time.perf_counter() - t0:.1f} s (gray equal to the written frames: {same})")
+        if not same or len(back.frames) != len(seq.frames):
+            raise AssertionError("TUM round trip failed")
+        cmd = [sys.executable, "-c", _CLI, "--tum", root, "--config",
+               os.path.join(root, "settings.yaml"), "--loop", "--async-mapping",
+               "--traj-out", os.path.join(root, "traj.txt")]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+        wall = time.perf_counter() - t0
+    finally:
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
+    lines = res.stdout.splitlines()
+    print("  cli: " + "\n  cli: ".join(lines[-6:]))
+    if res.returncode != 0:
+        raise AssertionError(f"cli exited {res.returncode}:\n{res.stderr[-3000:]}")
+    stats = json.loads([x for x in lines if x.startswith("{")][-1])
+    launches = int([x for x in lines if x.startswith("B1_LAUNCHES")][-1].split()[1])
+    print(f"  cli subprocess {wall:.1f} s, ATE {stats['ate_rmse_m'] * 1e3:.3f} mm, kernel "
+          f"launches {launches} for {len(seq.frames)} frames")
+    if not stats["ate_rmse_m"] < 0.04:
+        raise AssertionError(f"cli ATE {stats['ate_rmse_m']} m >= 0.04 m")
+    if launches != len(seq.frames):
+        raise AssertionError(f"kernel launched {launches} times for {len(seq.frames)} frames")
+    lib = bindings.get_lib()
+    kfdb = loop["system"].loop_closer.kfdb
+    print(f"  native library {bindings.LIB_PATH} loaded {lib is not None}, built by this process "
+          f"{bindings.BUILT_HERE}; the loop phase's keyframe database native {kfdb.is_native}")
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "spslam_tpu_torch", "_build")
+    if lib is None or os.path.dirname(bindings.LIB_PATH) != here or not kfdb.is_native:
+        raise AssertionError("the native library did not build or load")
+    return dict(launches=launches)
+
+
 def main() -> int:
     import torch
 
@@ -804,6 +1332,9 @@ def main() -> int:
     from spslam_tpu_torch.ops import fast_cuda
     from spslam_tpu_torch.ops.pyramid import PyramidSpec
 
+    # cuBLAS's deterministic mode (the dp phase) needs a fixed workspace,
+    # set before the first cuBLAS handle
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     t_start = time.perf_counter()
     card = _card_line()
     print(card)
@@ -833,12 +1364,18 @@ def main() -> int:
     phase("loop ops", loop_ops_phase, seq)
     loop = phase("loop path", loop_path_phase)
     reloc = phase("relocalization", reloc_phase)
+    phase("dist BA", dist_ba_phase)
+    phase("dist GBA", dist_gba_phase, loop)
+    async_ = phase("async path", async_path_phase, seq, path["steady_ms"])
+    dp = phase("dp", dp_phase, seq)
+    cli = phase("cli and native", cli_native_phase, seq, loop)
 
     kernels = [dict(
         name="fast_nms", route="cuda", source="spslam_tpu_torch/csrc/fast_nms.cu",
         replaces="spslam_tpu/ops/fast_pallas.py:99",
-        # the point, planes, loop and relocalization paths' runs
-        launches=path["launches"] + planes["launches"] + loop["launches"] + reloc["launches"],
+        # every path's run: point, planes, loop, relocalization, async,
+        # data-parallel (2 Systems) and the CLI's subprocess
+        launches=sum(r["launches"] for r in (path, planes, loop, reloc, async_, dp, cli)),
         max_abs_err=kern["max_abs_err"],
         # per frame: the one launch over the 8 levels of a pyramid
         ms=kern["ms"], plain_ms=kern["plain_ms"],

@@ -15,8 +15,9 @@ correction, point correction, loop-end fusion and the post-loop global BA
   a global BA on a 1-worker thread (the reference's 4th thread) whose
   result is merged into the grown map.
 
-Runs synchronously after keyframe insertion; with detect=False it only
-maintains the relocalization index.  Divergences from the reference:
+Runs after keyframe insertion (inline, or on the mapping worker with
+async mapping); with detect=False it only maintains the relocalization
+index.  Divergences from the reference:
 * the RANSAC hypotheses come from an explicit CPU generator seeded 17
   (`self.draw`, replaceable by a test) instead of PRNGKey(17);
 * `wait_gba` clears the future when the worker raised (the reference keeps
@@ -73,8 +74,8 @@ class LoopConfig:
     covis_edge_weight: int = 30     # covisibility edges in the essential graph
     loop_edge_weight: float = 10.0
     pose_graph_iters: int = 20
-    # post-loop global BA: None = auto (dense; a map too large for it needs
-    # the sharded solver of slice 4), True = sharded (slice 4), False = dense
+    # post-loop global BA: None = auto (dense small maps, the sharded solver
+    # for big ones), True = sharded, False = dense
     gba_distributed: bool | None = None
     # post-loop global BA on its own worker thread (False: inline)
     gba_async: bool = True

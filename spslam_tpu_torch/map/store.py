@@ -17,6 +17,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..native.bindings import covis_count
+
 # byte -> popcount lookup table (for pairwise Hamming over packed descriptors)
 _POPCNT8 = np.unpackbits(np.arange(256, dtype=np.uint8)[:, None], axis=1).sum(1).astype(np.uint8)
 
@@ -431,17 +433,19 @@ class MapStore:
     def covisibility(self, k: int, min_weight: int = 15) -> np.ndarray:
         """KF ids sharing >= min_weight map points with KF k, ordered by
         weight descending (the reference's covisibility graph edges).
-        numpy bincount only; the reference's native C++ counter
-        (spslam_tpu/native) is host code and comes with a later slice."""
-        pts = self.kf_obs[k]
-        pts = pts[pts >= 0]
-        if len(pts) == 0:
-            return np.zeros(0, np.int32)
-        obs_kfs = self.pt_obs_kf[pts].ravel()
-        obs_kfs = obs_kfs[(obs_kfs >= 0) & (obs_kfs != k)]
-        if len(obs_kfs) == 0:
-            return np.zeros(0, np.int32)
-        counts = np.bincount(obs_kfs, minlength=self.cfg.max_keyframes)
+        Counted by the native C++ counter (native/src/covis.cc) when the
+        library is there, else by numpy bincount."""
+        counts = covis_count(self.kf_obs[k], self.pt_obs_kf, k, self.cfg.max_keyframes)
+        if counts is None:
+            pts = self.kf_obs[k]
+            pts = pts[pts >= 0]
+            if len(pts) == 0:
+                return np.zeros(0, np.int32)
+            obs_kfs = self.pt_obs_kf[pts].ravel()
+            obs_kfs = obs_kfs[(obs_kfs >= 0) & (obs_kfs != k)]
+            if len(obs_kfs) == 0:
+                return np.zeros(0, np.int32)
+            counts = np.bincount(obs_kfs, minlength=self.cfg.max_keyframes)
         ids = np.nonzero((counts >= min_weight) & self.kf_valid)[0]
         order = np.argsort(-counts[ids], kind="stable")
         return ids[order].astype(np.int32)

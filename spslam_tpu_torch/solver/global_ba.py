@@ -1,16 +1,18 @@
 """Global bundle adjustment over the whole map after a loop closure (port
-of spslam_tpu/solver/global_ba.py, its dense path).
+of spslam_tpu/solver/global_ba.py).
 
-The map is flattened on the host into one BAProblem padded to power-of-two
-sizes with the reference's floors (GBA_MIN_*), an alternating
+Dense path: the map is flattened on the host into one BAProblem padded to
+power-of-two sizes with the reference's floors (GBA_MIN_*), an alternating
 resection-intersection settle (`refine_alternating`) absorbs the pose
 graph's correction, then the two-stage Schur LM of solver/ba.py converges
 it.  At the floors the Schur tensor Y is [8192, 192, 3] float32.
 
-Not ported here: the sharded solver (`dist_global_bundle_adjust`, the
-reference's auto choice once Y exceeds GBA_MAX_Y_ELEMS).  Asking for it,
-or a map that large in auto mode, raises NotImplementedError: it comes
-with slice 4 (parallel/dist_ba.py).
+Sharded path (`dist_global_bundle_adjust`): points and their observations
+split into trajectory segments over a list of devices, the reduced camera
+system summed once per LM iteration (parallel/dist_ba.py).  Auto mode
+takes it once Y would exceed GBA_MAX_Y_ELEMS; with fewer than two devices
+(one GPU) it declines, and the dense path settles 3x longer instead, as
+the reference does on one chip.
 """
 
 from __future__ import annotations
@@ -32,9 +34,6 @@ GBA_MAX_Y_ELEMS = 2 ** 29  # ~2 GiB of f32 for the [P, 6M, 3] Schur tensor
 GBA_MIN_M = 32      # keyframes
 GBA_MIN_P = 8192    # points
 GBA_MIN_R = 32768   # observations
-
-_SLICE4 = ("the sharded global BA (dist_global_bundle_adjust, parallel/dist_ba.py) is "
-           "not ported yet; it comes with slice 4")
 
 
 def _pow2(n: int, lo: int) -> int:
@@ -183,22 +182,32 @@ def assemble_global_problem(store, intr: Intrinsics, omax: int | None = None, de
 
 def global_bundle_adjust(store, intr: Intrinsics, settle_iters: int = 4, stage1_iters: int = 4,
                          stage2_iters: int = 8, distributed: bool | None = None,
-                         write_back: bool = True, device=None):
+                         write_back: bool = True, device=None, devices=None):
     """Global BA over the whole map: an alternating settle, then the full
-    Schur LM (the dense path of the reference).
+    Schur LM.
 
-    `distributed`: None (auto) or False run the dense solve; True, or auto
-    with a Schur tensor beyond GBA_MAX_Y_ELEMS, raise NotImplementedError
-    (slice 4).  False with such a map settles longer instead, as the
-    reference's bounded-memory fallback.
+    `distributed`: None (auto) runs the dense Newton while the Schur tensor
+    Y fits GBA_MAX_Y_ELEMS and otherwise the sharded solver over this
+    process's devices; True forces the sharded solver; False never uses
+    it.  When the sharded solver declines (fewer than two devices, or a
+    map too small to shard), a map too large for Y settles 3x longer
+    instead (the bounded-memory fallback).
 
-    write_back=True: write into the store; returns True if the Newton stage
-    ran.  write_back=False (the loop closer's GBA worker): returns {kf_ids,
-    poses, pt_ids, points, pl_ids, planes, newton, wrote=False} for the
-    caller to merge, or None when the map is too small."""
-    if distributed is True:
-        raise NotImplementedError(_SLICE4)
+    write_back=True: write into the store; returns True if a Newton-type
+    stage (dense or sharded) ran.  write_back=False (the loop closer's GBA
+    worker): returns {kf_ids, poses, pt_ids, points, pl_ids, planes,
+    newton, wrote=False} for the caller to merge, or None when the map is
+    too small; the sharded path writes inline and returns {wrote=True,
+    newton=True}.  `devices`: the sharded solver's device list (default:
+    this process's GPUs on CUDA, [device] on the CPU)."""
     st = store
+    dev = resolve_device(device)
+    if devices is None and dev.type != "cuda":
+        devices = [dev]
+    n_iters = stage1_iters + stage2_iters
+    if distributed is True and dist_global_bundle_adjust(st, intr, n_iters=n_iters,
+                                                         devices=devices):
+        return True if write_back else dict(wrote=True, newton=True)
     with st.lock:
         out = assemble_global_problem(st, intr, device=device)
     if out is None:
@@ -207,8 +216,9 @@ def global_bundle_adjust(store, intr: Intrinsics, settle_iters: int = 4, stage1_
 
     M, P = prob.poses.shape[0], prob.points.shape[0]
     newton = P * 6 * M * 3 <= GBA_MAX_Y_ELEMS
-    if not newton and distributed is None:
-        raise NotImplementedError(_SLICE4 + f" (map of {M} keyframes x {P} points)")
+    if not newton and distributed is None and dist_global_bundle_adjust(
+            st, intr, n_iters=n_iters, devices=devices):
+        return True if write_back else dict(wrote=True, newton=True)
 
     def settle(poses, points, n):
         return refine_alternating(
@@ -244,3 +254,80 @@ def global_bundle_adjust(store, intr: Intrinsics, settle_iters: int = 4, stage1_
             st.pl_coef[pl_ids] = new_planes[: len(pl_ids)]
         st.version += 1
     return newton
+
+
+def dist_global_bundle_adjust(store, intr: Intrinsics, n_shards: int | None = None,
+                              n_iters: int = 12, devices=None) -> bool:
+    """Global BA with keyframe trajectory segments and their map blocks
+    sharded over `devices` (parallel/dist_ba.py), written back into the
+    store.
+
+    `devices`: the shards' devices, one shard each, and repeats allowed
+    (default: this process's GPUs, `dist_ba.global_mesh()`); D =
+    min(n_shards, len(devices)), as the reference caps by its devices.
+    With a `torch.distributed` group of W processes up, every process
+    passes its own devices, D counts all W x len(devices), each process
+    solves its block of shards and the solved points are all-reduced once
+    at the end.
+
+    Points only (planes keep their pose-graph-corrected values), the
+    oldest keyframe fixed as gauge, each point on its owning keyframe's
+    segment (reference keyframe, else its first observing camera), no
+    settle stage.  Returns False, leaving the store as it was, when D < 2
+    or the map has fewer than 64 points per shard."""
+    from ..parallel import dist_ba
+
+    st = store
+    devices = list(devices) if devices is not None else dist_ba.global_mesh()
+    world = torch.distributed.get_world_size() if dist_ba._group_up() else 1
+    rank = torch.distributed.get_rank() if world > 1 else 0
+    D = min(n_shards or len(devices) * world, len(devices) * world)
+    D -= D % world
+    with st.lock:
+        flat = _flatten_point_obs(st, st.cfg.max_obs_per_point)
+        if flat is None:
+            return False
+        kf_ids, pt_ids = flat["kf_ids"], flat["pt_ids"]
+        if D < 2 or len(pt_ids) < 64 * D:
+            return False
+        poses = st.kf_pose[kf_ids].astype(np.float32).copy()
+        points = st.pt_pos[pt_ids].astype(np.float32).copy()
+        # owning keyframe in compact index space (reference keyframe when
+        # still valid, else the point's first observing camera)
+        ref = st.pt_ref_kf[pt_ids]
+        ref_ok = (ref >= 0) & st.kf_valid[np.maximum(ref, 0)]
+        pt_ref_compact = np.where(ref_ok, flat["kf_to_idx"][np.maximum(ref, 0)],
+                                  -1).astype(np.int64)
+
+    rows = flat["rows"]
+    first = np.full(len(pt_ids), len(rows), np.int64)
+    np.minimum.at(first, rows, np.arange(len(rows)))
+    seen = first < len(rows)
+    fallback_ref = np.zeros(len(pt_ids), np.int64)
+    fallback_ref[seen] = flat["cam_idx"][first[seen]]
+    pt_ref_compact = np.where(pt_ref_compact >= 0, pt_ref_compact, fallback_ref)
+
+    pose_fixed = np.zeros(len(kf_ids), bool)
+    pose_fixed[0] = True  # gauge
+    prob, shard_of_pt, local_idx = dist_ba.partition_problem(
+        poses, pose_fixed, points, flat["cam_idx"].astype(np.int32), rows.astype(np.int64),
+        flat["uv"], flat["ur"],
+        octave_inv_sigma2(torch.from_numpy(flat["octave"])).numpy(),
+        n_shards=D, obs_per_point=st.cfg.max_obs_per_point, pt_ref_kf=pt_ref_compact,
+        strategy="segments", return_mapping=True,
+    )
+    per = D // world
+    new_poses, pts, _ = dist_ba.dist_bundle_adjust(
+        dist_ba.local_shards(prob, rank, world), intr, devices[:per], n_iters=n_iters)
+    if world > 1:
+        # every process writes the whole map: gather the shards' points
+        full = torch.zeros((D,) + pts.shape[1:], dtype=pts.dtype, device=pts.device)
+        full[rank * per:(rank + 1) * per] = pts
+        torch.distributed.all_reduce(full)
+        pts = full
+    new_poses, new_points = new_poses.cpu().numpy(), pts.cpu().numpy()
+    with st.lock:
+        st.kf_pose[kf_ids] = new_poses
+        st.pt_pos[pt_ids] = new_points[shard_of_pt, local_idx]
+        st.version += 1
+    return True

@@ -1,7 +1,9 @@
 """System facade: build the pipeline, feed RGB-D frames, save results
-(port of spslam_tpu/system.py, synchronous mapping): points, planes with
-use_planes=True, loop closure with use_loop=True, and relocalization with
-enable_reloc=True (the default, as in the reference).
+(port of spslam_tpu/system.py): points, planes with use_planes=True, loop
+closure with use_loop=True, relocalization with enable_reloc=True (the
+default, as in the reference), mapping on a background thread with
+async_mapping=True (tracking/pipeline.py), and the sharded post-loop
+global BA with gba_distributed=True.
 
     sys_ = System(SystemConfig(intr=intr, use_loop=True))   # on CUDA
     for (gray, depth), ts in frames:
@@ -12,6 +14,7 @@ enable_reloc=True (the default, as in the reference).
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 from dataclasses import dataclass, field
 
@@ -25,6 +28,7 @@ from .loop.vocab import DEFAULT_VOCAB_PATH, Vocabulary
 from .map.store import SAVED_ARRAYS, MapConfig, MapStore
 from .mapping.local_mapper import LocalMapper, MapperConfig
 from .mapping.plane_mapper import PlaneMapper, PlaneMapperConfig
+from .tracking.pipeline import AsyncMappingPipeline
 from .tracking.tracker import Tracker, TrackerConfig, TrackState
 
 
@@ -50,23 +54,11 @@ class SystemConfig:
     depth_map_factor: float = 5000.0  # raw-depth divisor for integer datasets
 
 
-# features of the reference this port does not have yet, and the slice of
-# the port that brings each
-_LATER = (
-    ("async_mapping", "a later slice (async mapping, tracking/pipeline.py)"),
-    ("gba_distributed", "slice 4 (the sharded global BA, parallel/dist_ba.py)"),
-)
-
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 class System:
     def __init__(self, cfg: SystemConfig, device=None):
-        for name, slice_ in _LATER:
-            if getattr(cfg, name):
-                raise NotImplementedError(
-                    f"SystemConfig.{name}=True is not ported yet; it comes with {slice_}"
-                )
         self.device = resolve_device(device)
         self.cfg = cfg
         if cfg.map.n_kp != cfg.tracker.n_features:
@@ -104,6 +96,12 @@ class System:
             self.tracker.relocalizer = (self.loop_closer.vocab, self.loop_closer.kfdb)
         self.trajectory: list[tuple[float, np.ndarray]] = []
         self._rel_trajectory: list[tuple[float, int, np.ndarray]] = []
+        self.pipeline = None
+        if cfg.async_mapping:
+            self.pipeline = AsyncMappingPipeline(self)
+            # the keyframe rate follows the mapper's throughput (the
+            # reference's bLocalMappingIdle gate)
+            self.tracker.mapper_queue_fn = self.pipeline.queue_len
 
     # -----------------------------------------------------------------
     def track_rgbd(self, gray: np.ndarray, depth: np.ndarray, ts: float):
@@ -128,6 +126,9 @@ class System:
         self._rel_trajectory.append((ts, int(ref), T_rel))
         self.trajectory.append((ts, T))
         if rec.new_kf >= 0 and not self.cfg.localization_only:
+            if self.pipeline is not None:
+                self.pipeline.submit(rec.new_kf, rec.gray, rec.depth)
+                return
             if self.plane_mapper is not None and state == TrackState.OK:
                 self.plane_mapper.process_keyframe(rec.new_kf, rec.depth)
             self.mapper.process_keyframe(rec.new_kf, run_ba=self.cfg.local_ba)
@@ -171,6 +172,14 @@ class System:
                 f.write(f"{st.kf_ts[k]:.6f} {tx:.6f} {ty:.6f} {tz:.6f} "
                         f"{qx:.6f} {qy:.6f} {qz:.6f} {qw:.6f}\n")
 
+    def save_metrics(self, path: str):
+        """The tracker's per-frame metrics, one JSON object per line."""
+        for rec in self.tracker.flush_pipeline():
+            self._absorb(rec)
+        with open(path, "w") as f:
+            for m in self.tracker.metrics:
+                f.write(json.dumps(m) + "\n")
+
     # -----------------------------------------------------------------
     def save_map(self, path: str):
         """Checkpoint the map (.npz with the reference's array names)."""
@@ -209,6 +218,8 @@ class System:
     def shutdown(self):
         for rec in self.tracker.flush_pipeline():
             self._absorb(rec)
+        if self.pipeline is not None:
+            self.pipeline.shutdown()
         lc = self.loop_closer
         # one more global BA over the closed map, only when no solve is
         # still in flight (two solves would race their merges)

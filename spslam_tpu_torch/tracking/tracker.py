@@ -455,6 +455,9 @@ class Tracker:
         # reference splits PRNGKey(23); a test may replace it
         self._reloc_gen = torch.Generator().manual_seed(23)
         self.reloc_draw = lambda valid: draw_hypotheses(valid, self._reloc_gen)
+        # () -> queued + in-flight keyframes of the async mapper (System sets
+        # it with async_mapping); None means mapping is synchronous
+        self.mapper_queue_fn = None
         # set (possibly from another thread) when a loop closure rewrote the
         # current pose: the next dispatch rebuilds the device pose chain
         self._pose_corrected = threading.Event()
@@ -735,6 +738,29 @@ class Tracker:
             self._snapshot_cache = (key_topo, st.version, snap)
         return snap
 
+    def refresh_snapshot_values(self):
+        """Bring the local-map snapshot cache up to the current store, from
+        the async mapper's thread after its write-back, so the tracker's
+        next dispatch does not pay the gather.  The cache tuple is replaced
+        whole, so a concurrent move of ref_kf only makes this a no-op."""
+        st = self.store
+        cached = self._snapshot_cache
+        if cached is None:
+            return
+        if cached[0] != (st.topo_version, self.ref_kf):
+            with st.lock:
+                key_topo = (st.topo_version, self.ref_kf)
+                snap = self._local_snapshot_build()
+                self._snapshot_cache = (key_topo, st.version, snap)
+            return
+        if cached[1] == st.version:
+            return
+        with st.lock:
+            ids = cached[2][0]
+            snap = (ids, *self._snapshot_gather(ids, desc_cached=cached[2][2]))
+            ver = st.version
+        self._snapshot_cache = (cached[0], ver, snap)
+
     def _snapshot_gather(self, ids: np.ndarray, desc_cached=None):
         """Upload pack (+ desc unless the cached device copy is passed: for
         a fixed id set descriptors change only by the distinctive-descriptor
@@ -908,16 +934,22 @@ class Tracker:
             n2_proj = n2 + self.pipeline_depth * (n2 - n2_prev)
         urgent = n2_proj < cfg.kf_urgent_cover
         weak = n2 < 0.25 * ref_tracked
-        # mapping is synchronous here, so the mapper is always idle when
-        # tracking asks (the reference's queue gates come with async mapping)
+        queue_len = 0 if self.mapper_queue_fn is None else self.mapper_queue_fn()
+        mapper_idle = queue_len == 0
+        # c1a (max interval) | c1b (min interval + mapper idle) | c1c (weak
+        # tracking / urgent close points), all under c2
         c1a = self.frames_since_kf >= cfg.kf_max_interval
-        c1b = self.frames_since_kf >= cfg.kf_min_interval
+        c1b = self.frames_since_kf >= cfg.kf_min_interval and mapper_idle
         c1c = weak or need_close or urgent
         c2 = (
             (n2 < cfg.kf_tracked_ratio * ref_tracked or need_close)
             and n2 > cfg.kf_min_inliers
         )
-        return c1a or ((c1b or c1c) and c2)
+        if not (c1a or ((c1b or c1c) and c2)):
+            return False
+        # with a busy mapper, insert while its queue is short (RGB-D), or
+        # when due or urgent: the keyframe itself extends the local map
+        return mapper_idle or queue_len < cfg.kf_queue_cap or c1a or urgent
 
     def _relocalize(self, frame: FrameData):
         """Global relocalization against the keyframe database: BoW

@@ -495,12 +495,6 @@ def test_global_bundle_adjust_matches_reference(scene):
     scene["gba"] = want
 
 
-def test_global_bundle_adjust_refuses_the_sharded_solver(scene):
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tgba.global_bundle_adjust(port_store(scene["jst"]), GBA_INTR, distributed=True,
-                                  device=DEV)
-
-
 # ---------------------------------------------------------------- detector gates
 def _closers(consistency_needed=3):
     jintr = JIntr(fx=100.0, fy=100.0, cx=32.0, cy=24.0, bf=8.0, width=64, height=48)
