@@ -82,7 +82,21 @@
    subprocess (exit 0, the JSON line with ATE < 0.04 m, one launch per
    frame); the port's C++ library built in the checkout and the loop
    phase's keyframe database native.
-15. Prints the kernel table as one JSON line (launches counted over all
+15. Vocab phase: loop/train_vocab.collect_training_descriptors at full
+   size (4 rooms x 12 views of 640x480, 8 levels, 1,024 features) on the
+   card: exactly one kernel launch per view (48); room 0 built on the card
+   again (equal) and on the CPU (>= 99% of the descriptor rows in common);
+   train_vocabulary of 4,096 words on the card and on the CPU from the same
+   pool and draw: vocabulary bits and idf equal exactly; the saved file read
+   back with equal words.  Prints the collect and k-means times, the
+   descriptor count and the file size.
+16. Api phase: sim3_exp, sim3_log, sim3_compose, sim3_inverse,
+   se3_matrix and se3_from_matrix on the card against the CPU at 1e-5
+   (sim3_exp and sim3_log rows with |sigma| >= 1e-6 plus two ulps of the
+   reference's (e^sigma - 1)/sigma cancellation), project_with_depth at
+   6.4e-4 px + 1e-6 relative, and rpe_rmse of the path phase's run beside
+   its ATE.
+17. Prints the kernel table as one JSON line (launches counted over all
    the paths' runs), the script's wall time, the card's name and power limit,
    and as the last line {"ok": true, "device": {...}}.
 
@@ -412,7 +426,8 @@ def path_phase(seq):
     if n_fused == 0 or launches != len(frames):
         raise AssertionError(f"kernel launched {launches} times for {len(frames)} frames "
                              f"({n_fused} through the fused step)")
-    return dict(launches=launches, n_fused=n_fused, ate=ate, steady_ms=steady_ms)
+    return dict(launches=launches, n_fused=n_fused, ate=ate, steady_ms=steady_ms,
+                poses=poses, poses_gt=seq.poses_gt)
 
 
 def segmentation_phase(seq):
@@ -1321,6 +1336,152 @@ def cli_native_phase(seq, loop):
     return dict(launches=launches)
 
 
+def _rows_in_common(a, b) -> float:
+    """Descriptor rows two pools share, as multisets, over the larger pool
+    (a keypoint at a FAST threshold shifts the later rows of its level)."""
+    from collections import Counter
+
+    common = Counter(map(bytes, a)) & Counter(map(bytes, b))
+    return sum(common.values()) / max(len(a), len(b))
+
+
+def vocab_phase(card):
+    """The vocabulary trainer (loop/train_vocab.py) at full size on the
+    card: 4 rooms x 12 views of 640x480, 8 levels, 1,024 features, one B1
+    launch per view; k-means of 4,096 words on the card and on the CPU from
+    the same pool and draw, bit for bit; room 0 built on the CPU too; the
+    saved file read back."""
+    import tempfile
+
+    import torch
+
+    from spslam_tpu_torch.loop.train_vocab import collect_training_descriptors, train_vocabulary
+    from spslam_tpu_torch.loop.vocab import Vocabulary, quantize
+    from spslam_tpu_torch.ops import fast_cuda
+    from spslam_tpu_torch.ops.brief import unpack_bits
+
+    fast_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    pool = collect_training_descriptors(device="cuda")
+    torch.cuda.synchronize()
+    collect_s = time.perf_counter() - t0
+    launches = fast_cuda.LAUNCHES
+    print(f"  collect: {launches} kernel launches for 48 views, {len(pool)} descriptors, "
+          f"{collect_s:.2f} s (renderer included)")
+    if launches != 48:
+        raise AssertionError(f"kernel launched {launches} times for 48 views")
+    if pool.dtype != np.uint32 or pool.ndim != 2 or pool.shape[1] != 8 or len(pool) < 4 * 4096:
+        raise AssertionError(f"bad descriptor pool {pool.dtype} {pool.shape}")
+
+    # room 0 again on the card and on the CPU (launches not counted)
+    room0 = collect_training_descriptors(rooms=1, device="cuda")
+    room0_cpu = collect_training_descriptors(rooms=1, device="cpu")
+    same_run = np.array_equal(room0, pool[: len(room0)])
+    common = _rows_in_common(room0, room0_cpu)
+    print(f"  room 0 (12 views): card {len(room0)} vs CPU {len(room0_cpu)} descriptors, rows in "
+          f"common {common:.5f} (bound 0.99); card rerun equal to the first run: {same_run}")
+    if not same_run:
+        raise AssertionError("room 0 on the card differs between two runs")
+    if common < 0.99 or abs(len(room0) - len(room0_cpu)) > 0.01 * len(room0_cpu):
+        raise AssertionError("the card's descriptors disagree with the CPU's")
+
+    init_idx = torch.randperm(len(pool), generator=torch.Generator().manual_seed(0))[:4096]
+    t0 = time.perf_counter()
+    voc = train_vocabulary(pool, 4096, init_idx=init_idx, device="cuda")
+    torch.cuda.synchronize()
+    kmeans_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    voc_cpu = train_vocabulary(pool, 4096, init_idx=init_idx, device="cpu")
+    kmeans_cpu_s = time.perf_counter() - t0
+    bits, bits_cpu = voc.vocab_bits.cpu().numpy(), voc_cpu.vocab_bits.numpy()
+    n_bits_diff = int((bits != bits_cpu).sum())
+    print(f"  k-means 4096 words x 8 iterations on {len(pool)} descriptors: card "
+          f"{kmeans_s * 1e3:.1f} ms, CPU {kmeans_cpu_s * 1e3:.1f} ms (idf included); bits "
+          f"differing card vs CPU {n_bits_diff}, idf equal {np.array_equal(voc.idf, voc_cpu.idf)}")
+    if n_bits_diff or not np.array_equal(voc.idf, voc_cpu.idf):
+        raise AssertionError("the card's vocabulary differs from the CPU's")
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "vocab.npz")
+        voc.save(path)
+        size = os.path.getsize(path)
+        back = Vocabulary(n_words=4096, device="cuda")
+        back.load(path)
+    d_pool = np.ascontiguousarray(pool).view(np.int32)
+    pool_bits = unpack_bits(torch.from_numpy(d_pool).cuda())
+    valid = torch.ones(len(pool), dtype=torch.bool, device="cuda")
+    words = quantize(pool_bits, voc.vocab_bits, valid).cpu().numpy()
+    words_back = quantize(pool_bits, back.vocab_bits, valid).cpu().numpy()
+    used = len(np.unique(words))
+    print(f"  saved {size} bytes; words of the pool after load equal: "
+          f"{np.array_equal(words, words_back)}; {used} of 4096 words used ({card})")
+    if not np.array_equal(words, words_back) or not np.array_equal(back.idf, voc.idf):
+        raise AssertionError("the saved vocabulary does not read back")
+    return dict(launches=launches, collect_s=collect_s, kmeans_s=kmeans_s, n_desc=len(pool),
+                bytes=size)
+
+
+def api_phase(path):
+    """The reference's public surface on the card against the CPU on seeded
+    inputs: the Sim(3) group and SE(3) matrix conversions at 1e-5, the
+    projection at pixel scale, and rpe_rmse of the path phase's run.
+
+    sim3_exp (and sim3_log, which rebuilds W with it) take the reference's
+    (e^sigma - 1) / sigma for |sigma| >= 1e-6: an ulp of e^sigma is
+    2^-23 s / |sigma| of that coefficient, and the card's expf and the
+    CPU's exp may round apart.  Their rows get 2 ulps of it on top of 1e-5:
+    2^-22 max(s, 1) |rho| / |sigma| (the CPU's float32 itself is 7.9e-5 off
+    float64 at sigma = 3e-4, 0.3-0.4x of one ulp's term)."""
+    import torch
+
+    from spslam_tpu_torch.eval.ate import rpe_rmse
+    from spslam_tpu_torch.geometry import (
+        Intrinsics, project_with_depth, se3_exp, se3_from_matrix, se3_matrix, sim3_compose,
+        sim3_exp, sim3_inverse, sim3_log)
+
+    rng = np.random.default_rng(21)
+    xi = (0.4 * rng.normal(size=(4096, 7))).astype(np.float32)
+    xi[:64, 3:6] = 0.0                         # the small-angle and small-scale branches
+    xi[32:96, 6] = 0.0
+    cpu = lambda fn, *a: fn(*(torch.from_numpy(x) for x in a)).numpy()   # noqa: E731
+    S = cpu(sim3_exp, xi)
+    S2 = cpu(sim3_exp, (0.4 * rng.normal(size=(4096, 7))).astype(np.float32))
+    T = cpu(se3_exp, (0.5 * rng.normal(size=(4096, 6))).astype(np.float32))
+    xc = np.concatenate([rng.normal(0, 1, (4096, 2)), rng.uniform(0.3, 6, (4096, 1))],
+                        axis=-1).astype(np.float32)
+    intr = Intrinsics(fx=525.0, fy=525.0, cx=319.5, cy=239.5, bf=40.0)
+    sigma = np.abs(xi[:, 6])
+    cond = np.where(sigma >= 1e-6, 2.0 ** -22 * np.maximum(np.exp(xi[:, 6]), 1.0)
+                    * np.abs(xi[:, :3]).max(axis=1) / np.maximum(sigma, 1e-6), 0.0)
+    cases = {   # name: (fn, inputs, abs bound per row, relative bound)
+        "sim3_exp": (sim3_exp, (xi,), 1e-5 + cond, 0.0),
+        "sim3_log": (sim3_log, (S,), 1e-5 + cond, 0.0),
+        "sim3_compose": (sim3_compose, (S, S2), 1e-5, 0.0),
+        "sim3_inverse": (sim3_inverse, (S,), 1e-5, 0.0),
+        "se3_matrix": (se3_matrix, (T,), 1e-5, 0.0),
+        "se3_from_matrix": (se3_from_matrix, (cpu(se3_matrix, T),), 1e-5, 0.0),
+        # test_torch_geometry.py's pixel tolerance: 1e-6 relative, 1e-6 of 640 px
+        "project_with_depth": (lambda x: project_with_depth(intr, x), (xc,), 6.4e-4, 1e-6),
+    }
+    print(f"  {int((cond > 1e-5).sum())} of 4096 sim3 rows with the cancellation term above 1e-5")
+    for name, (fn, args, atol, rtol) in cases.items():
+        got = fn(*(torch.from_numpy(x).cuda() for x in args)).cpu().numpy()
+        want = cpu(fn, *args)
+        diff = np.abs(got - want).reshape(len(got), -1)
+        bound = np.reshape(atol, (-1, 1)) + rtol * np.abs(want).reshape(len(got), -1)
+        rest = (f", {float(diff[cond < 1e-6].max()):.3g} on the rows where it is below 1e-6"
+                if np.ndim(atol) else "")
+        print(f"  {name}: card vs CPU max abs diff {float(diff.max()):.3g}{rest}; worst diff / "
+              f"bound {float((diff / bound).max()):.3f}; finite {bool(np.isfinite(got).all())}")
+        if not np.all(diff <= bound) or not np.isfinite(got).all():
+            raise AssertionError(f"{name} on the card disagrees with the CPU")
+    rpe, errs = rpe_rmse(path["poses"], path["poses_gt"])
+    print(f"  path phase's run: RPE {rpe * 1e3:.3f} mm per frame over {len(errs)} pairs, "
+          f"ATE {path['ate'] * 1e3:.3f} mm")
+    if not np.isfinite(rpe) or len(errs) != len(path["poses"]) - 1:
+        raise AssertionError(f"bad rpe_rmse {rpe} over {len(errs)} pairs")
+
+
 def main() -> int:
     import torch
 
@@ -1369,13 +1530,16 @@ def main() -> int:
     async_ = phase("async path", async_path_phase, seq, path["steady_ms"])
     dp = phase("dp", dp_phase, seq)
     cli = phase("cli and native", cli_native_phase, seq, loop)
+    vocab = phase("vocab", vocab_phase, card)
+    phase("api", api_phase, path)
 
     kernels = [dict(
         name="fast_nms", route="cuda", source="spslam_tpu_torch/csrc/fast_nms.cu",
         replaces="spslam_tpu/ops/fast_pallas.py:99",
         # every path's run: point, planes, loop, relocalization, async,
-        # data-parallel (2 Systems) and the CLI's subprocess
-        launches=sum(r["launches"] for r in (path, planes, loop, reloc, async_, dp, cli)),
+        # data-parallel (2 Systems), the CLI's subprocess and the
+        # vocabulary trainer
+        launches=sum(r["launches"] for r in (path, planes, loop, reloc, async_, dp, cli, vocab)),
         max_abs_err=kern["max_abs_err"],
         # per frame: the one launch over the 8 levels of a pyramid
         ms=kern["ms"], plain_ms=kern["plain_ms"],

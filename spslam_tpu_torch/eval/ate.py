@@ -56,3 +56,17 @@ def ate_rmse(
     est_aligned = (s * (R @ est.T)).T + t
     err = np.linalg.norm(est_aligned - gt, axis=-1)
     return float(np.sqrt(np.mean(err ** 2))), err
+
+
+def rpe_rmse(poses_est_cw: np.ndarray, poses_gt_cw: np.ndarray, delta: int = 1):
+    """Relative pose error: the translational drift over `delta` frames.
+
+    Returns (rmse_meters, per-pair errors [F - delta])."""
+    from ..geometry.np_lie import se3_compose, se3_inverse
+
+    est, gt = np.asarray(poses_est_cw), np.asarray(poses_gt_cw)
+    m = len(est) - delta
+    de = se3_compose(est[delta:], se3_inverse(est[:m]))
+    dg = se3_compose(gt[delta:], se3_inverse(gt[:m]))
+    errs = np.linalg.norm(se3_compose(de, se3_inverse(dg))[:, 4:7], axis=-1)
+    return float(np.sqrt(np.mean(errs ** 2))), errs

@@ -28,6 +28,15 @@ class Intrinsics(NamedTuple):
     height: int = 480
 
     @property
+    def K(self) -> torch.Tensor:
+        """float32 [3, 3] camera matrix on the host (a property takes no
+        device): callers move it with `.to(device)`."""
+        return torch.tensor(
+            [[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]],
+            dtype=torch.float32,
+        )
+
+    @property
     def has_distortion(self) -> bool:
         return any(abs(v) > 0 for v in (self.k1, self.k2, self.p1, self.p2, self.k3))
 
@@ -39,6 +48,11 @@ def project(intr: Intrinsics, xc: torch.Tensor) -> torch.Tensor:
     u = intr.fx * xc[..., 0:1] / z + intr.cx
     v = intr.fy * xc[..., 1:2] / z + intr.cy
     return torch.cat([u, v], dim=-1)
+
+
+def project_with_depth(intr: Intrinsics, xc: torch.Tensor) -> torch.Tensor:
+    """-> [..., 3] = (u, v, z)."""
+    return torch.cat([project(intr, xc), xc[..., 2:3]], dim=-1)
 
 
 def unproject(intr: Intrinsics, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,14 @@
-"""SO(3)/SE(3) operations on batched torch tensors (port of
-spslam_tpu/geometry/lie.py, the subset the port's paths call).
+"""SO(3)/SE(3)/Sim(3) operations on batched torch tensors (port of
+spslam_tpu/geometry/lie.py).
 
 Conventions as in the reference: quaternions ``[w, x, y, z]`` (Hamilton),
 SE(3) as 7-vectors ``[qw qx qy qz tx ty tz]`` mapping ``x -> R x + t``,
-tangent ``[rho(3), phi(3)]``.  Every function broadcasts over leading dims.
-RGB-D fixes the scale, so the loop path needs no Sim(3).
+Sim(3) as 8-vectors ``[qw qx qy qz tx ty tz s]`` mapping ``x -> s R x + t``,
+tangents ``[rho(3), phi(3)]`` and ``[rho(3), phi(3), sigma]``.  Every
+function broadcasts over leading dims.  RGB-D fixes the scale, so the
+loop path itself needs no Sim(3); the group is here for the reference's
+public surface.  The identity constructors take a device (None is the
+card, as for every entry point).
 
 Forward-mode autodiff (`torch.func.jacfwd`) goes through `so3_log` and
 `se3_log` at exactly zero rotation: the pose graph linearizes its
@@ -18,10 +22,17 @@ from __future__ import annotations
 
 import torch
 
+from .. import resolve_device
+
 
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a, b = torch.broadcast_tensors(a, b)
     return torch.linalg.cross(a, b, dim=-1)
+
+
+def quat_identity(device=None) -> torch.Tensor:
+    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=torch.float32,
+                        device=resolve_device(device))
 
 
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:
@@ -132,6 +143,11 @@ def hat(v: torch.Tensor) -> torch.Tensor:
     return m.reshape(v.shape[:-1] + (3, 3))
 
 
+def se3_identity(device=None) -> torch.Tensor:
+    return torch.tensor([1.0, 0, 0, 0, 0, 0, 0], dtype=torch.float32,
+                        device=resolve_device(device))
+
+
 def se3_q(T: torch.Tensor) -> torch.Tensor:
     return T[..., 0:4]
 
@@ -159,6 +175,19 @@ def se3_inverse(T: torch.Tensor) -> torch.Tensor:
     qi = quat_conj(se3_q(T))
     ti = -quat_rotate(qi, se3_t(T))
     return se3_make(qi, ti)
+
+
+def se3_matrix(T: torch.Tensor) -> torch.Tensor:
+    """7-vector -> 4x4 homogeneous matrix (batched)."""
+    top = torch.cat([quat_to_mat(se3_q(T)), se3_t(T)[..., None]], dim=-1)
+    # [0 0 0 1] by padding: a constant made from a list would be a
+    # blocking host->device copy on CUDA
+    one = torch.ones(T.shape[:-1] + (1, 1), dtype=T.dtype, device=T.device)
+    return torch.cat([top, torch.nn.functional.pad(one, (3, 0))], dim=-2)
+
+
+def se3_from_matrix(M: torch.Tensor) -> torch.Tensor:
+    return se3_make(mat_to_quat(M[..., :3, :3]), M[..., :3, 3])
 
 
 def _V_matrix(phi: torch.Tensor) -> torch.Tensor:
@@ -209,3 +238,124 @@ def se3_log(T: torch.Tensor) -> torch.Tensor:
     phi = so3_log(se3_q(T))
     rho = _solve3(_V_matrix(phi), se3_t(T))
     return torch.cat([rho, phi], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Sim(3) as 8-vectors [qw qx qy qz tx ty tz s]
+# ---------------------------------------------------------------------------
+
+
+def sim3_identity(device=None) -> torch.Tensor:
+    return torch.tensor([1.0, 0, 0, 0, 0, 0, 0, 1.0], dtype=torch.float32,
+                        device=resolve_device(device))
+
+
+def sim3_make(q: torch.Tensor, t: torch.Tensor, s) -> torch.Tensor:
+    """s: a number, a tensor of q's leading shape, or one with a trailing 1."""
+    if not isinstance(s, torch.Tensor):
+        s = torch.full(q.shape[:-1] + (1,), float(s), dtype=q.dtype, device=q.device)
+    s = s.to(q.dtype)
+    if s.dim() < q.dim():
+        s = s[..., None].expand(q.shape[:-1] + (1,))
+    elif s.shape[-1] != 1:
+        s = s[..., None]
+    return torch.cat([quat_normalize(q), t, s], dim=-1)
+
+
+def sim3_q(S: torch.Tensor) -> torch.Tensor:
+    return S[..., 0:4]
+
+
+def sim3_t(S: torch.Tensor) -> torch.Tensor:
+    return S[..., 4:7]
+
+
+def sim3_s(S: torch.Tensor) -> torch.Tensor:
+    return S[..., 7]
+
+
+def sim3_apply(S: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return sim3_s(S)[..., None] * quat_rotate(sim3_q(S), x) + sim3_t(S)
+
+
+def sim3_compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    q = quat_mul(sim3_q(A), sim3_q(B))
+    s = sim3_s(A) * sim3_s(B)
+    t = sim3_s(A)[..., None] * quat_rotate(sim3_q(A), sim3_t(B)) + sim3_t(A)
+    return sim3_make(q, t, s)
+
+
+def sim3_inverse(S: torch.Tensor) -> torch.Tensor:
+    qi = quat_conj(sim3_q(S))
+    si = 1.0 / torch.clamp_min(sim3_s(S), 1e-12)
+    ti = -si[..., None] * quat_rotate(qi, sim3_t(S))
+    return sim3_make(qi, ti, si)
+
+
+def sim3_from_se3(T: torch.Tensor) -> torch.Tensor:
+    ones = torch.ones(T.shape[:-1] + (1,), dtype=T.dtype, device=T.device)
+    return torch.cat([T, ones], dim=-1)
+
+
+def se3_from_sim3(S: torch.Tensor) -> torch.Tensor:
+    """Sim(3) -> SE(3) with the translation divided by the scale (the
+    loop-correction convention [R t/s; 0 1])."""
+    t = sim3_t(S) / torch.clamp_min(sim3_s(S)[..., None], 1e-12)
+    return se3_make(sim3_q(S), t)
+
+
+def sim3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """Tangent [rho, phi, sigma] -> Sim(3): W = C I + A Phi + B Phi^2
+    (Strasdat's closed form), with the reference's four coefficient
+    branches (general, small sigma, small theta, both) over safe
+    denominators, so no branch divides by zero."""
+    rho, phi, sigma = xi[..., 0:3], xi[..., 3:6], xi[..., 6]
+    s = torch.exp(sigma)
+    q = so3_exp_quat(phi)
+
+    theta2 = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(torch.clamp_min(theta2, 1e-24))
+    Phi = hat(phi)
+    Phi2 = Phi @ Phi
+    eye = torch.eye(3, dtype=xi.dtype, device=xi.device).expand(Phi.shape)
+
+    sig_small = torch.abs(sigma) < 1e-6
+    th_small = theta2 < 1e-12
+    safe_sig = torch.where(sig_small, 1.0, sigma)
+    safe_th = torch.where(th_small, 1.0, theta)
+    safe_th2 = torch.where(th_small, 1.0, theta2)
+
+    C = torch.where(sig_small, 1.0, (s - 1.0) / safe_sig)
+    a = s * torch.sin(safe_th)
+    b = s * torch.cos(safe_th)
+    den = safe_sig * safe_sig + safe_th2
+    A_gen = (a * safe_sig + (1.0 - b) * safe_th) / (safe_th * den)
+    B_gen = (C - ((b - 1.0) * safe_sig + a * safe_th) / den) / safe_th2
+    A_thsmall = torch.where(sig_small, 0.5, ((safe_sig - 1.0) * s + 1.0) / (safe_sig * safe_sig))
+    B_thsmall = torch.where(
+        sig_small, 1.0 / 6.0,
+        (s * (0.5 * safe_sig * safe_sig - safe_sig + 1.0) - 1.0) / (safe_sig ** 3),
+    )
+    A_sigsmall = (1.0 - torch.cos(safe_th)) / safe_th2
+    B_sigsmall = (safe_th - torch.sin(safe_th)) / (safe_th2 * safe_th)
+    A = torch.where(th_small, A_thsmall, torch.where(sig_small, A_sigsmall, A_gen))
+    B = torch.where(th_small, B_thsmall, torch.where(sig_small, B_sigsmall, B_gen))
+
+    W = C[..., None, None] * eye + A[..., None, None] * Phi + B[..., None, None] * Phi2
+    t = (W @ rho[..., None])[..., 0]
+    return sim3_make(q, t, s)
+
+
+def sim3_log(S: torch.Tensor) -> torch.Tensor:
+    """Sim(3) -> tangent [rho, phi, sigma]: W is rebuilt column by column
+    from sim3_exp of the unit rho's, then W rho = t is solved (adjugate,
+    no host sync)."""
+    phi = so3_log(sim3_q(S))
+    sigma = torch.log(torch.clamp_min(sim3_s(S), 1e-12))[..., None]
+    e = torch.eye(3, dtype=S.dtype, device=S.device)
+    W = torch.stack([
+        sim3_t(sim3_exp(torch.cat([e[i].expand(phi.shape), phi, sigma], dim=-1)))
+        for i in range(3)
+    ], dim=-1)
+    rho = _solve3(W, sim3_t(S))
+    return torch.cat([rho, phi, sigma], dim=-1)

@@ -222,21 +222,23 @@ def _pose_cw(cx, cy, cz, pitch, yaw) -> np.ndarray:
     return np.concatenate([_mat_to_quat(Rcw), tcw]).astype(np.float32)
 
 
-def orbit_trajectory(n_frames: int) -> np.ndarray:
-    """Smooth arc inside the room with small rotations: [F, 7] T_cw."""
+def orbit_trajectory(n_frames: int, radius: float = 0.8, seed: int = 1) -> np.ndarray:
+    """Smooth arc of `radius` inside the room with small rotations: [F, 7]
+    T_cw.  `seed` is unused, as in the reference."""
     poses = []
     for i in range(n_frames):
         a = 2.0 * np.pi * i / max(n_frames * 4, 1)  # quarter orbit over sequence
-        poses.append(_pose_cw(0.8 * np.sin(a), 0.15 * np.sin(3 * a), -1.0 + 0.3 * np.sin(2 * a),
+        poses.append(_pose_cw(radius * np.sin(a), 0.15 * np.sin(3 * a), -1.0 + 0.3 * np.sin(2 * a),
                               0.08 * np.sin(a * 3.0), 0.25 * np.sin(a * 2.0)))
     return np.stack(poses)
 
 
-def loop_trajectory(n_frames: int, turns: float = 1.25) -> np.ndarray:
+def loop_trajectory(n_frames: int, seed: int = 1, turns: float = 1.25) -> np.ndarray:
     """Yaw rotation in place (plus small sway) that overshoots a full turn,
     so the last quarter of the sequence re-traverses the starting views (a
     sustained revisit window for the loop detector's consistency chain).
-    The sway is periodic in the turn angle.  Returns [F, 7] T_cw."""
+    The sway is periodic in the turn angle.  `seed` is unused, as in the
+    reference.  Returns [F, 7] T_cw."""
     poses = []
     for i in range(n_frames):
         a = 2.0 * np.pi * turns * i / n_frames

@@ -119,6 +119,11 @@ class Vocabulary:
         v /= s
         return {int(w): float(v[w]) for w in np.nonzero(v)[0]}
 
+    def save(self, path: str):
+        """The reference's format: vocab float32 [V, 256] {0,1}, idf float64 [V]."""
+        np.savez(path, vocab=self.vocab_bits.cpu().numpy().astype(np.float32),
+                 idf=np.asarray(self.idf, np.float64))
+
     def load(self, path: str):
         with np.load(path) as d:
             self.vocab_bits = torch.from_numpy(np.asarray(d["vocab"], np.float32)).to(self.device)

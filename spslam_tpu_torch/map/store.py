@@ -259,6 +259,28 @@ class MapStore:
     # points
     # ------------------------------------------------------------------
 
+    def add_point(self, pos, desc, normal, ref_kf: int, dist: float,
+                  octave: int = 0) -> int:
+        """One new point with no observation yet; returns its id.  Its
+        scale range is the reference's: max distance dist * 1.2^octave."""
+        self._ensure_pt_capacity()
+        p = self.n_pt
+        self.pt_pos[p] = pos
+        self.pt_desc[p] = desc
+        self.pt_normal[p] = normal
+        self.pt_ref_kf[p] = ref_kf
+        self.pt_first_kf[p] = ref_kf
+        self.pt_max_dist[p] = dist * 1.2 ** octave
+        self.pt_min_dist[p] = self.pt_max_dist[p] / 1.2 ** 8
+        self.pt_valid[p] = True
+        self.pt_n_obs[p] = 0
+        self.pt_visible[p] = 1
+        self.pt_found[p] = 1
+        self.n_pt += 1
+        self.version += 1
+        self.topo_version += 1
+        return p
+
     def add_points_bulk(self, pos, desc, normal, dist, ref_kf: int, slots,
                         octave=None) -> np.ndarray:
         """Vectorized creation of n new points observed by (ref_kf, slots).

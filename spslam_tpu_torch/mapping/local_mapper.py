@@ -50,6 +50,13 @@ class LocalMapper:
         self.device = resolve_device(device)
         self._recent_points: list[tuple[int, int]] = []  # (point_id, birth_kf)
 
+    def on_new_points(self, pids: np.ndarray, kf: int):
+        """Register points born at keyframe `kf` for `cull_points`.  As in
+        the reference, nothing on the System's path calls it, so culling
+        sees only what a caller registers here."""
+        for p in np.asarray(pids):
+            self._recent_points.append((int(p), kf))
+
     def process_keyframe(self, kf: int, run_ba: bool = True):
         """Point maintenance, culling, fusion, local BA, keyframe culling for
         a newly inserted keyframe (the reference's LocalMapping::Run step)."""

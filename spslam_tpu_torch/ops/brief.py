@@ -38,6 +38,10 @@ BRIEF_PATTERN = _make_pattern()
 
 _yy, _xx = np.mgrid[-ORIENT_R : ORIENT_R + 1, -ORIENT_R : ORIENT_R + 1]
 _CIRC = (_yy ** 2 + _xx ** 2 <= ORIENT_R ** 2).astype(np.float32)
+# the orientation disc and its coordinates, [31, 31] float32 host tensors
+ORIENT_MASK = torch.from_numpy(_CIRC)
+ORIENT_X = torch.from_numpy(_xx.astype(np.float32))
+ORIENT_Y = torch.from_numpy(_yy.astype(np.float32))
 
 
 def _make_moment_matrix() -> np.ndarray:
@@ -73,19 +77,14 @@ def _make_diff_matrix() -> np.ndarray:
 
 
 MOMENT_MATRIX = _make_moment_matrix()
-
-
-@functools.lru_cache(maxsize=None)
-def _diff_matrix_np() -> np.ndarray:
-    # 33 MB: built on first use, not at import
-    return _make_diff_matrix()
+# [1089, 7680] float32 host tensor (33 MB, ~20 ms to build)
+BRIEF_DIFF_MATRIX = torch.from_numpy(_make_diff_matrix())
 
 
 @functools.lru_cache(maxsize=None)
 def _tables(device: torch.device):
     """(MOMENT_MATRIX, BRIEF_DIFF_MATRIX) as tensors on `device`."""
-    return (torch.from_numpy(MOMENT_MATRIX).to(device),
-            torch.from_numpy(_diff_matrix_np()).to(device))
+    return torch.from_numpy(MOMENT_MATRIX).to(device), BRIEF_DIFF_MATRIX.to(device)
 
 
 def ic_angle(patches: torch.Tensor) -> torch.Tensor:

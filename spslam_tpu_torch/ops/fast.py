@@ -26,6 +26,7 @@ CIRCLE_OFFSETS = (
     (0, -3), (-1, -3), (-2, -2), (-3, -1), (-3, 0), (-3, 1), (-2, 2), (-1, 3),
 )
 
+ARC_LEN = 9  # FAST_9_16 contiguity requirement
 SCORE_BONUS = 1e6  # added to corners passing the high threshold
 
 

@@ -83,3 +83,7 @@ def build_pyramid_levels(img: torch.Tensor, spec: PyramidSpec, blur: bool = True
         if blur:
             blurs.append(gaussian_blur7(lvl))
     return tuple(levels), tuple(blurs)
+
+
+def default_spec(height: int, width: int, n_levels: int = 8, scale_factor: float = 1.2) -> PyramidSpec:
+    return PyramidSpec(n_levels=n_levels, scale_factor=scale_factor, height=height, width=width)

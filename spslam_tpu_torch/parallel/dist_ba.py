@@ -403,11 +403,16 @@ def init_distributed(coordinator: str | None = None, num_processes: int | None =
     return True
 
 
-def global_mesh() -> list:
-    """This process's devices: its one GPU when a group of several
-    processes is up, else every visible GPU, else the CPU."""
-    if not torch.cuda.is_available():
-        return [torch.device("cpu")]
+def global_mesh(device=None) -> list:
+    """This process's devices.  `device=None` means the card, as for every
+    entry point (raises without CUDA): its one GPU when a group of several
+    processes is up, else every visible GPU.  Any other device gives
+    [that device], so the CPU is asked for explicitly."""
+    from .. import resolve_device
+
+    dev = resolve_device(device)
+    if device is not None:
+        return [dev]
     if _group_up() and torch.distributed.get_world_size() > 1:
         return [torch.device("cuda", torch.cuda.current_device())]
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]

@@ -19,9 +19,9 @@ so such a step is rejected alike.  torch.func is not thread-safe in
 forward mode, so the Jacobians go through `batched_jacfwd` (one lock).
 
 Differences in summation order: the camera and plane blocks are
-scatter-added (`index_put_(accumulate=True)`; on CUDA these are atomics
-whose order varies between runs), where the reference contracts one-hot
-matrices for the camera blocks.
+scatter-added (on the CPU a flat `index_add` in index order, on CUDA an
+accumulating `index_put`), where the reference contracts one-hot matrices
+for the camera blocks.
 """
 
 from __future__ import annotations
@@ -182,17 +182,25 @@ def _plane_plane_residuals(planes, prob: BAProblem, with_jac: bool = True):
 
 def _scatter_block_add(S, rows, cols, blocks):
     """S[rows_i + a, cols_i + b] += blocks[i, a, b] (accumulating; invalid
-    terms are sent to a dump row/col beyond the trimmed system)."""
+    terms are sent to a dump row/col beyond the trimmed system).  On the
+    CPU one flat `index_add`, which adds in index order: an accumulating
+    `index_put` there adds from several threads in run-dependent order, so
+    the same problem gave another result on every call."""
     A, B = blocks.shape[1], blocks.shape[2]
     r = rows[:, None] + torch.arange(A, dtype=rows.dtype, device=rows.device)[None, :]
     c = cols[:, None] + torch.arange(B, dtype=cols.dtype, device=cols.device)[None, :]
     r, c = torch.broadcast_tensors(r[:, :, None], c[:, None, :])
+    if S.device.type == "cpu":
+        flat = (r * S.shape[1] + c).reshape(-1)
+        return S.reshape(-1).index_add(0, flat, blocks.reshape(-1)).reshape(S.shape)
     return S.index_put((r, c), blocks, accumulate=True)
 
 
 def _scatter_vec_add(b, rows, vecs):
     A = vecs.shape[1]
     r = rows[:, None] + torch.arange(A, dtype=rows.dtype, device=rows.device)[None, :]
+    if b.device.type == "cpu":
+        return b.index_add(0, r.reshape(-1), vecs.reshape(-1))
     return b.index_put((r,), vecs, accumulate=True)
 
 

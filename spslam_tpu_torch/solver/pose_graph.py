@@ -8,7 +8,7 @@ the retraction (`torch.func.vmap(jacfwd)` through solver/ba.py's
 `batched_jacfwd`, as the reference's `jax.vmap(jax.jacfwd)`); the first iteration linearizes every structural
 edge at exactly zero residual, where `so3_log` takes its small-angle
 branch (geometry/lie.py keeps its tangent free of NaN).  Damped GN on the
-dense 6K x 6K system: block scatter-adds (`index_put_(accumulate=True)`),
+dense 6K x 6K system: block scatter-adds (`solver/ba._scatter_block_add`),
 solver/ba.py's `cho_solve` (a failed factorization gives NaN on the device,
 as the reference's `cho_factor` does, and the step is rejected), and the
 accept/reject as a device `where`: no host sync inside the solve.

@@ -44,3 +44,14 @@ def textured_u8(h: int, w: int, seed: int, levels: int = 6) -> np.ndarray:
     small = rng.integers(0, levels, (h // 4 + 1, w // 4 + 1))
     img = np.kron(small, np.ones((4, 4)))[:h, :w] * (255 // (levels - 1))
     return img.astype(np.uint8)
+
+
+def assert_same_store(got, want):
+    """Every array, count and version of two MapStores equal exactly (the
+    port's against the reference's; both are numpy copies)."""
+    for name, v in vars(want).items():
+        if isinstance(v, np.ndarray):
+            np.testing.assert_array_equal(getattr(got, name), v, err_msg=name)
+    for name in ("n_kf", "n_pt", "n_pl", "version", "topo_version"):
+        assert getattr(got, name) == getattr(want, name), name
+    assert vars(got.cfg) == vars(want.cfg)

@@ -174,4 +174,12 @@ def test_world_size_one_group(problem, monkeypatch):
 def test_init_distributed_noop_without_coordinator(monkeypatch):
     monkeypatch.delenv("SPSLAM_COORDINATOR", raising=False)
     assert td.init_distributed() is False
-    assert td.global_mesh() == [torch.device("cpu")]
+    assert td.global_mesh("cpu") == [torch.device("cpu")]
+
+
+def test_global_mesh_without_cuda_raises():
+    # None means the card, as for every entry point: no silent CPU fallback
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        td.global_mesh()

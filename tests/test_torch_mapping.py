@@ -171,6 +171,29 @@ def test_scatter_and_inverse_helpers():
     assert not n(tba._inv3x3(t(A)))[0].any()
 
 
+def test_scatter_adds_in_index_order_on_the_cpu():
+    """The Schur scatter-adds equal numpy's sequential np.add.at bit for bit
+    on a problem large enough for several threads, on every call: an
+    accumulating index_put added from several threads in run-dependent
+    order, and two runs of one System drifted apart."""
+    rng = np.random.default_rng(5)
+    n_rows, dim = 200_000, 6 * 64 + 6
+    rows = rng.integers(0, 64, n_rows) * 6
+    blocks = rng.normal(size=(n_rows, 6, 6)).astype(np.float32)
+    vecs = rng.normal(size=(n_rows, 6)).astype(np.float32)
+    r = rows[:, None] + np.arange(6)
+    want_S = np.zeros((dim, dim), np.float32)
+    np.add.at(want_S, (r[:, :, None].repeat(6, 2), r[:, None, :].repeat(6, 1)), blocks)
+    want_b = np.zeros(dim, np.float32)
+    np.add.at(want_b, r, vecs)
+    for _ in range(2):
+        S = tba._scatter_block_add(t(np.zeros((dim, dim), np.float32)), t(rows), t(rows),
+                                   t(blocks))
+        np.testing.assert_array_equal(n(S), want_S)
+        np.testing.assert_array_equal(
+            n(tba._scatter_vec_add(t(np.zeros(dim, np.float32)), t(rows), t(vecs))), want_b)
+
+
 def _fuse_scene(seed, n_pts=96, n_kp=128):
     """Two keyframes seeing the same structure, each holding its own copy of
     every landmark (built identically in a JAX store and a port store)."""
