@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import math
 import threading
+import time
 from dataclasses import dataclass
 from enum import Enum
 from typing import Optional
@@ -478,6 +479,27 @@ class Tracker:
         self._ref_tracked_cache = None
         # deferred map-point statistics (ids_seen, ids_found) per frame
         self._stat_batch: list[tuple[np.ndarray, np.ndarray]] = []
+        # per-section host-time accounting (tools/profile_host.py, see _pt):
+        # None = off, a dict turns it on
+        self.perf: Optional[dict] = None
+
+    def _pt(self, key: str, t0: float) -> float:
+        """Add the host seconds since t0 to section `key` of self.perf and
+        return the current time.
+
+        The sections of the pipelined path, summed over frames: upload,
+        snapshot and dispatch in _dispatch; wait_small, decode, need_kf,
+        kf_fetch, kf_insert and stats_flush in _resolve, with n_frames
+        counting the frames resolved from the fused step (under
+        process_pipelined a frame's sections fall in later calls).  On the
+        card `upload` times the enqueue of the copies and `dispatch` the
+        kernel launches; the device's time shows up in `wait_small`, the
+        wait for the frame's small output, as with the reference's async
+        dispatch.  With perf None each section costs one `is not None`
+        test and no sync is added."""
+        t1 = time.perf_counter()
+        self.perf[key] = self.perf.get(key, 0.0) + (t1 - t0)
+        return t1
 
     def _flush_stats(self):
         """Apply the deferred map-point statistics in one batch."""
@@ -545,8 +567,15 @@ class Tracker:
         """Launch the fused step for one frame without waiting for it; the
         device->host copies of its outputs start right away."""
         cfg = self.cfg
+        perf = self.perf
+        if perf is not None:
+            t = time.perf_counter()
         gray_t, depth_t = self._upload_frame(gray, depth)
+        if perf is not None:
+            t = self._pt("upload", t)
         ids, pack, desc, pl_pack = self._local_snapshot()
+        if perf is not None:
+            t = self._pt("snapshot", t)
         if self._pose_corrected.is_set():
             self._chain = None
             self._pose_corrected.clear()
@@ -583,6 +612,8 @@ class Tracker:
             event = torch.cuda.Event()
             event.record()
         self._chain = (T_new, T_prev)
+        if perf is not None:
+            self._pt("dispatch", t)
         p = dict(frame=frame, out=host_small, out_big=host_big, event=event, ids=ids,
                  ts=ts, gray=gray, depth=depth, frame_id=self.frame_id, force_robust=False)
         self.frame_id += 1
@@ -604,6 +635,9 @@ class Tracker:
         prev_kf = self.last_kf
         fid_after = self.frame_id
         self.frame_id = p["frame_id"]
+        perf = self.perf
+        if perf is not None:
+            t = time.perf_counter()
         if p["event"] is not None:
             p["event"].synchronize()
         if p["force_robust"]:
@@ -614,6 +648,8 @@ class Tracker:
             self.frame_id = fid_after
             return self._record(p, prev_kf)
         buf = p["out"].numpy().view(np.uint32)
+        if perf is not None:
+            t = self._pt("wait_small", t)
         scal, mp = unpack_track_small(buf, cfg.local_points_cap)
         T_new = scal[0:7]
         n1, n2 = int(scal[7]), int(scal[8])
@@ -642,8 +678,12 @@ class Tracker:
         self.last_inliers = n2
         mids = np.asarray(p["ids"])
         self._stat_batch.append((mp, mids))
+        if perf is not None:
+            t = self._pt("decode", t)
 
         need_kf = self._need_new_kf(n2, n_close_tracked, close_avail, n2_prev=n2_prev)
+        if perf is not None:
+            t = self._pt("need_kf", t)
         if need_kf:
             self._flush_stats()
             matched = mp >= 0
@@ -653,6 +693,8 @@ class Tracker:
                 p["out_big"].numpy().view(np.uint32), cfg.n_features, self.intr,
                 self.depth_factor,
             )
+            if perf is not None:
+                t = self._pt("kf_fetch", t)
             kf = self._insert_keyframe(
                 frame, p["ts"], matches_pt_ids=np.where(inl, mids, -1),
                 match_kp_idx=match_idx, frame_np=frame_np,
@@ -660,9 +702,15 @@ class Tracker:
             self.ref_kf = kf
             self.last_kf = kf
             self.frames_since_kf = 0
+            if perf is not None:
+                t = self._pt("kf_insert", t)
         elif len(self._stat_batch) >= STATS_FLUSH_FRAMES:
             self._flush_stats()
+            if perf is not None:
+                t = self._pt("stats_flush", t)
         self.metrics.append(dict(frame=p["frame_id"], state="OK", inliers=n2, kf=int(need_kf)))
+        if perf is not None:
+            perf["n_frames"] = perf.get("n_frames", 0) + 1
         self.frame_id = fid_after
         return FrameRecord(
             ts=p["ts"], T=self.T_cw.copy(), state=self.state, ref_kf=self.ref_kf,
