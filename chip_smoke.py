@@ -50,13 +50,28 @@
    and the GBA worker's ms, then replays each closure from a copy of the
    map taken just before it, under the profiler, for its kernels and host
    syncs (closure, and its global BA apart); and the steady median and
-   largest ms per track_rgbd call.
+   largest ms per track_rgbd call.  tools/debug_loop's gate tracer rides
+   along on the System's LoopCloser: the keyframes it traced, its own host
+   time, and the gates of those with a geometric check or a closure print;
+   every closure was seen by it.
 9. Relocalization phase: the scenario of
    tests/integration/test_failure_paths.py (40-frame loop sequence, 28 lead
    frames, 4 blank frames, then frames 2-11 again) after the sync-tracking
    warm-up: asserts RELOC in the metrics, final state OK, the recovered
    pose within 0.3 m of truth and one kernel launch per frame.
-10. Dist BA phase: parallel/dist_ba.dist_bundle_adjust at 256 keyframes,
+10. Loop lane phase: one paced pass of the bench's loop lane (the 128-frame
+   loop sequence, rendered into the bench's cache by a niced process beside
+   the earlier phases; async mapping, use_loop, local BA, th_depth 3.2, u8
+   gray and u16 depth at 30 fps) through tools/loop_lane_debug, after the
+   warm-ups of the two phases before it: the LoopCloser's event log, per
+   closure its frames and the ground-truth view gap against the half field
+   of view and its loop edge's error against the ground truth, per global
+   BA the keyframes added while it ran; asserts no error logged by the
+   mapping worker, every loop edge within 50 mm and 1 degree of the truth
+   (a closure past the half field of view is no fault: both packages
+   accept such closures with true alignments) and one kernel launch per
+   frame.
+11. Dist BA phase: parallel/dist_ba.dist_bundle_adjust at 256 keyframes,
    32,768 points, 16 observations a point at most, in 4 shards on cuda:0
    (a post-loop-shaped map: keyframes orbiting the points): the cost must
    fall below 0.1x; D = 1 vs D = 4 on the card, poses within 1e-4; card vs
@@ -64,25 +79,25 @@
    through a world-size-1 NCCL group equal to the run without one (1e-4).
    Prints ms per LM iteration by part, host syncs per iteration, the
    all_reduce's bytes per iteration and time, and peak memory.
-11. Dist GBA phase: dist_global_bundle_adjust(n_shards=4, 4 x cuda:0) on a
+12. Dist GBA phase: dist_global_bundle_adjust(n_shards=4, 4 x cuda:0) on a
    copy of the loop path phase's map (finite, loop ATE re-read < 0.04 m),
    and auto mode with GBA_MAX_Y_ELEMS lowered, which declines the sharded
    solver on one card and settles 3x longer.
-12. Async path phase: System(async_mapping=True) on the 20-frame orbit:
+13. Async path phase: System(async_mapping=True) on the 20-frame orbit:
    ATE < 0.03 m, no LOST frame, every submitted keyframe processed, no
    error logged by the mapping worker, one kernel launch per frame; ms
    per call beside the synchronous path's.
-13. Dp phase: parallel/dp_eval.evaluate_sequences on the orbit of seeds 0
-   and 7 (two Systems on the card, deterministic algorithms on): each ATE
+14. Dp phase: parallel/dp_eval.evaluate_sequences on the 10-frame orbit of
+   seeds 0 and 7 (two Systems on the card, deterministic algorithms on): each ATE
    < 0.02 m, sequence 1 batched equal to alone to 1e-6, one launch per
    frame per System; aggregate frames/s.
-14. Cli and native phase: a TUM-layout directory of the 20 frames written
+15. Cli and native phase: a TUM-layout directory of the first 10 frames written
    with the script's own PNG writer, then `python -m spslam_tpu_torch.cli
    --tum DIR --config DIR/settings.yaml --loop --async-mapping` in a
    subprocess (exit 0, the JSON line with ATE < 0.04 m, one launch per
    frame); the port's C++ library built in the checkout and the loop
    phase's keyframe database native.
-15. Vocab phase: loop/train_vocab.collect_training_descriptors at full
+16. Vocab phase: loop/train_vocab.collect_training_descriptors at full
    size (4 rooms x 12 views of 640x480, 8 levels, 1,024 features) on the
    card: exactly one kernel launch per view (48); room 0 built on the card
    again (equal) and on the CPU (>= 99% of the descriptor rows in common);
@@ -90,36 +105,45 @@
    pool and draw: vocabulary bits and idf equal exactly; the saved file read
    back with equal words.  Prints the collect and k-means times, the
    descriptor count and the file size.
-16. Api phase: sim3_exp, sim3_log, sim3_compose, sim3_inverse,
+17. Api phase: sim3_exp, sim3_log, sim3_compose, sim3_inverse,
    se3_matrix and se3_from_matrix on the card against the CPU at 1e-5
    (sim3_exp and sim3_log rows with |sigma| >= 1e-6 plus two ulps of the
    reference's (e^sigma - 1)/sigma cancellation), project_with_depth at
    6.4e-4 px + 1e-6 relative, and rpe_rmse of the path phase's run beside
    its ATE.
-17. Bench phase: `python -m spslam_tpu_torch.bench` in a subprocess with
-   BENCH_PASSES=1 BENCH_LOWTEX=0 BENCH_LOOP=0: the point and planes lanes
-   on the 40-frame orbit (12-frame warm-ups, async mapping), whose render a
-   niced single-threaded process put in the bench's cache beside the
-   earlier phases.  Parses its JSON line: the reference bench's keys, both
-   ATEs < 20 mm, one kernel launch per frame fed (104).
-18. Host sections phase: tools/profile_host's profile of the path phase's
-   20 frames (its 12-frame warm-up, 1 pass, async mapping): the section
-   table with every key of the reference's tracker, only those keys
-   accumulated, the per-frame ones on every resolved frame, the accounted
-   sum within the pass's wall time, one launch per frame (32).
-19. Weak scaling phase: tools/weak_scaling's sweep at D = 1, 2, 4 on the
+18. Bench phase: `python -m spslam_tpu_torch.bench` in a subprocess with
+   BENCH_FRAMES=20 BENCH_PASSES=1 BENCH_LOWTEX=0 BENCH_LOOP=0: the point
+   and planes lanes on the 20-frame orbit (the bench's own is 40; 12-frame
+   warm-ups, async mapping).  A niced single-threaded process renders this
+   orbit, and the planes, loop and loop lane phases' sequences, into the
+   bench's cache beside the earlier phases.  Parses its JSON line: the
+   reference bench's keys, both ATEs < 20 mm, one kernel launch per frame
+   fed (64).
+19. Host sections phase: tools/profile_host's profile of the path phase's
+   first 10 frames (its warm-up on the same frames, 1 pass, async
+   mapping): the section table with every key of the reference's tracker,
+   only those keys accumulated, the per-frame ones on every resolved
+   frame, the accounted sum within the pass's wall time, one launch per
+   frame (20).
+20. Weak scaling phase: tools/weak_scaling's sweep at D = 1, 2, 4 on the
    visible cards (shards round-robin; on one card all on cuda:0), its
    problem of 16,384 points and 64 cameras with the points moved by 5 cm
    noise so that there is a cost to bring down: the cost falls at every D,
    the JSON line prints (and the caveat when shards share a card).
-20. Recall phase: tools/vocab_recall's sweep on the card at --quick's
+21. Recall phase: tools/vocab_recall's sweep on the card at --quick's
    sizes (4,096 and 16,384 words), cut to what the run already rendered:
    the eval set is the loop path phase's 64-frame loop sequence every 4th
    frame (--quick renders a 96-frame one), the training pool the vocab
    phase's 49,152 descriptors of 4 other rooms (--quick renders a 40-frame
    orbit).  The curve prints, recall and precision lie in [0, 1] with
    queries > 0, one launch per built frame (16).
-21. Prints the kernel table as one JSON line (launches counted over all
+22. Tools phase: tools/ate_debug on the first 8 frames of the orbit (sync
+   ATE < 20 mm, async < 30 mm), profile_frame, profile_fused, profile_ab
+   (and its replica once against the real step, bit equality printed),
+   profile_pipeline at n = 3, profile_tunnel and profile_xfer, in-process:
+   every time finite and positive, one kernel launch per frame each tool
+   builds.
+23. Prints the kernel table as one JSON line (launches counted over all
    the paths' runs), the script's wall time, the card's name and power limit,
    and as the last line {"ok": true, "device": {...}}.
 
@@ -129,6 +153,7 @@ fails.  Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import subprocess
@@ -150,6 +175,16 @@ REF_LOWTEX_LOST = 0
 # CPU: `python -m tests.torch_cpu_runs loop64 --which jax`
 REF_LOOP_LOST = 0
 SYNC_KEYS = ("aten::item", "aten::_local_scalar_dense")
+TOOL_N = 3                  # the tools phase's repetitions
+ATE_FRAMES = 8              # the tools phase's ate_debug orbit (the tool's is 40)
+# the dp, CLI and host sections phases' orbit: the path phase's first frames
+# (cut from its 20 to keep the script inside its time limit)
+SHORT_FRAMES = 10
+BENCH_FRAMES = 20           # the bench phase's orbit (the bench's own is 40; cut for time)
+# a loop lane closure's edge against the ground-truth relative pose: every
+# edge measured on the lane (card and CPU, both packages) lies within 20 mm
+# and 0.44 degrees
+LANE_EDGE_MM, LANE_EDGE_DEG = 50.0, 1.0
 
 
 def _card_line() -> str:
@@ -214,16 +249,27 @@ def _profiled(fn):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from spslam_tpu_torch.tools.profile_frame import device_work, trace_events
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    evs = prof.key_averages()
-    syncs = {e.key: e.count for e in evs if "Synchronize" in e.key or e.key in SYNC_KEYS}
-    dev = [e for e in evs if "CUDA" in str(e.device_type)
-           and float(getattr(e, "self_device_time_total", 0.0) or 0.0) > 0]
-    return (sum(e.count for e in dev), syncs,
-            sum(float(e.self_device_time_total) for e in dev) / 1e3)
+    # the trace's raw events: key_averages() takes a minute a closure
+    evs = trace_events(prof)
+    syncs = {}
+    for name, on_device, _ in evs:
+        if not on_device and ("Synchronize" in name or name in SYNC_KEYS):
+            syncs[name] = syncs.get(name, 0) + 1
+    n_k, dev_us = device_work(evs)
+    return n_k, syncs, dev_us / 1e3
+
+
+def _head(seq, n):
+    """A copy of seq holding its first n frames."""
+    out = copy.copy(seq)
+    out.frames, out.poses_gt, out.timestamps = seq.frames[:n], seq.poses_gt[:n], seq.timestamps[:n]
+    return out
 
 
 def _u8_u16(frames):
@@ -502,18 +548,12 @@ def planes_path_phase():
     import torch
 
     from spslam_tpu_torch.eval.ate import ate_rmse
-    from spslam_tpu_torch.io.synthetic import make_sequence
     from spslam_tpu_torch.ops import fast_cuda
     from spslam_tpu_torch.system import System, SystemConfig
     from spslam_tpu_torch.tracking.tracker import TrackerConfig
 
-    t0 = time.perf_counter()
-    seq = make_sequence(n_frames=30, low_texture=True, depth_noise=0.008, seed=7)
-    frames = [
-        (np.clip(g, 0, 255).astype(np.uint8), np.clip(d * 5000.0, 0, 65535).astype(np.uint16))
-        for g, d in seq.frames
-    ]
-    print(f"  rendered the 30 low-texture frames in {time.perf_counter() - t0:.1f} s")
+    seq = _rendered(0)
+    frames = _u8_u16(seq.frames)
     res = {}
     for use_planes in (True, False):
         n = len(frames) if use_planes else RATIO_FRAMES
@@ -719,16 +759,14 @@ def loop_path_phase():
     import torch
 
     from spslam_tpu_torch.eval.ate import ate_rmse
-    from spslam_tpu_torch.io.synthetic import make_sequence
     from spslam_tpu_torch.loop.loop_closer import LoopCloser, LoopConfig
     from spslam_tpu_torch.loop.precompile import warm_loop_machinery
     from spslam_tpu_torch.ops import fast_cuda
     from spslam_tpu_torch.system import System, SystemConfig
+    from spslam_tpu_torch.tools.debug_loop import GateTracer
 
-    t0 = time.perf_counter()
-    seq = make_sequence(n_frames=64, trajectory="loop", depth_noise=0.004)
+    seq = _rendered(1)
     frames = _u8_u16(seq.frames)
-    print(f"  rendered the 64 loop frames in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     warm_loop_machinery(seq.intr, device="cuda")
     print(f"  loop warm-up (loop/precompile.py) {time.perf_counter() - t0:.2f} s")
@@ -755,13 +793,16 @@ def loop_path_phase():
     lc._geometric_check = check_and_keep
     fast_cuda.LAUNCHES = 0
     times = []
-    for (gray, depth), ts in zip(frames, seq.timestamps):
+    # tools/debug_loop's tracer of the detector's gates rides along
+    gate_lines = []
+    with GateTracer(lc, gate_lines.append) as tracer:
+        for (gray, depth), ts in zip(frames, seq.timestamps):
+            t1 = time.perf_counter()
+            sys_.track_rgbd(gray, depth, ts)
+            times.append(time.perf_counter() - t1)
         t1 = time.perf_counter()
-        sys_.track_rgbd(gray, depth, ts)
-        times.append(time.perf_counter() - t1)
-    t1 = time.perf_counter()
-    sys_.shutdown()
-    shutdown_ms = (time.perf_counter() - t1) * 1e3
+        sys_.shutdown()
+        shutdown_ms = (time.perf_counter() - t1) * 1e3
     torch.cuda.synchronize()
     launches = fast_cuda.LAUNCHES
     poses = sys_.poses()
@@ -780,6 +821,24 @@ def loop_path_phase():
     for e in lc.events:
         if e["kind"] in ("closed", "gba"):
             print(f"    {e}")
+    rows = tracer.rows
+    print(f"  debug_loop's gate tracer: {len(rows)} keyframes traced with a trained "
+          f"vocabulary, {sum(len(r['geo']) for r in rows)} geometric checks "
+          f"({sum(ok for r in rows for _, _, ok in r['geo'])} passed), its own host time "
+          f"{tracer.seconds * 1e3:.1f} ms inside the calls above; the keyframes with a "
+          f"check or a closure:")
+    traced = {r["kf"] for r in rows if r["geo"] or r["closed"]}
+    show = False
+    for line in gate_lines:
+        if line.startswith("KF "):
+            show = int(line.split()[1].rstrip(":")) in traced
+        if show:
+            print("    " + line)
+    if not rows or any(r["covis_min"] is not None and r["min_score"] < r["covis_min"] - 1e-12
+                       for r in rows):
+        raise AssertionError("debug_loop's tracer saw no keyframe or a bad min-score gate")
+    if sum(r["closed"] for r in rows) != lc.n_loops_closed:
+        raise AssertionError("debug_loop's tracer missed a closure")
     for kf, cand, scale, store, edges, gen_state in snaps:
         lc2 = LoopCloser(seq.intr, store, lc.vocab, cfg=LoopConfig(gba_async=False),
                          device="cuda")
@@ -854,6 +913,44 @@ def reloc_phase():
         raise AssertionError("relocalization did not recover")
     if launches != n_fed:
         raise AssertionError(f"kernel launched {launches} times for {n_fed} frames")
+    return dict(launches=launches)
+
+
+def loop_lane_phase(prerender):
+    """One paced pass of the bench's 128-frame loop lane through
+    tools/loop_lane_debug, after the loop path and relocalization phases'
+    warm-ups (the same machinery the bench warms)."""
+    import torch
+
+    from spslam_tpu_torch.ops import fast_cuda
+    from spslam_tpu_torch.tools import loop_lane_debug as lld
+
+    t0 = time.perf_counter()
+    rc = prerender.wait(timeout=600)
+    print(f"  the prerender process ended with {rc}; waited {time.perf_counter() - t0:.1f} s")
+    seq = _rendered(2)
+    seq.frames = _u8_u16(seq.frames)
+    fast_cuda.LAUNCHES = 0
+    res = lld.run_pass(lld.lane_system(seq, "cuda"), seq)
+    torch.cuda.synchronize()
+    launches = fast_cuda.LAUNCHES
+    lld.report(0, res, lld.half_fov_deg(seq.intr))
+    n_false = sum(not c["true_revisit"] for c in res["closures"])
+    print(f"  lane: {res['loops']} closures ({n_false} beyond the half field of view), "
+          f"{len(res['worker_errors'])} worker errors, kernel launches {launches} for "
+          f"{len(seq.frames)} frames")
+    if res["worker_errors"]:
+        raise AssertionError(f"mapping worker logged: {res['worker_errors'][0]}")
+    if launches != len(seq.frames) or res["launches"] != launches:
+        raise AssertionError(f"kernel launched {launches} times for {len(seq.frames)} frames")
+    if not np.isfinite(res["ate_mm"]):
+        raise AssertionError(f"lane ATE {res['ate_mm']}")
+    # a closure at a wrong pose is a fault; one past the half field of view
+    # with a true alignment is not (both packages accept those)
+    wrong = [c for c in res["closures"] if not (c["edge_err_mm"] < LANE_EDGE_MM
+                                                and c["edge_err_deg"] < LANE_EDGE_DEG)]
+    if wrong:
+        raise AssertionError(f"closures at a wrong pose: {wrong}")
     return dict(launches=launches)
 
 
@@ -1194,8 +1291,8 @@ def async_path_phase(seq, sync_steady_ms):
 
 
 def dp_phase(seq):
-    """evaluate_sequences: two Systems on the card (the 20-frame orbit of
-    seeds 0 and 7), frames round-robin."""
+    """evaluate_sequences: two Systems on the card (the orbit of seeds 0
+    and 7, len(seq.frames) frames each), frames round-robin."""
     import copy
     import warnings
 
@@ -1205,7 +1302,8 @@ def dp_phase(seq):
     from spslam_tpu_torch.ops import fast_cuda
     from spslam_tpu_torch.parallel.dp_eval import evaluate_sequences
 
-    seqs = [copy.copy(seq), make_sequence(n_frames=20, seed=7)]
+    n = len(seq.frames)
+    seqs = [copy.copy(seq), make_sequence(n_frames=n, seed=7)]
     for s in seqs:
         s.frames = _u8_u16(s.frames)
     # deterministic kernels, so that one sequence's run alone and in the
@@ -1227,12 +1325,12 @@ def dp_phase(seq):
               f"{r.n_pts} points")
     diff = abs(results[1].ate_rmse_m - solo[0].ate_rmse_m)
     print(f"  dp: 2 Systems on one card, {fps:.3f} frames/s aggregate (one System alone "
-          f"{solo_fps:.3f}), kernel launches {launches} for 40 frames, sequence 1 batched vs "
+          f"{solo_fps:.3f}), kernel launches {launches} for {2 * n} frames, sequence 1 batched vs "
           f"alone ATE diff {diff:.2e} (1e-6); ops without a deterministic kernel: {nondet or 'none'}")
     if any(not r.ate_rmse_m < 0.02 for r in results) or not diff <= 1e-6:
         raise AssertionError("dp evaluation failed")
-    if launches != 40:
-        raise AssertionError(f"kernel launched {launches} times for 40 frames")
+    if launches != 2 * n:
+        raise AssertionError(f"kernel launched {launches} times for {2 * n} frames")
     return dict(launches=launches, fps=fps)
 
 
@@ -1515,21 +1613,44 @@ BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "ate_rmse_m", "point_pas
               "planes_fps", "planes_ate_rmse_m", "plane_passes"}
 
 
-# renders the bench's 40-frame orbit into its cache (data/.bench_cache_torch_*)
-_PRERENDER = ("from spslam_tpu_torch.bench import cached_sequence; "
-              "cached_sequence('torch_orbit40', n_frames=40)")
+# the renders the phases read from the bench's cache (data/.bench_cache_torch_*),
+# in the order the phases need them: (tag, make_sequence kwargs)
+RENDERS = (("torch_lowtex30", dict(n_frames=30, low_texture=True, depth_noise=0.008, seed=7)),
+           ("torch_loop64", dict(n_frames=64, trajectory="loop", depth_noise=0.004)),
+           ("torch_loop128", dict(n_frames=128, trajectory="loop", depth_noise=0.004)),
+           (f"torch_orbit{BENCH_FRAMES}", dict(n_frames=BENCH_FRAMES)))
+_PRERENDER = ("from spslam_tpu_torch.bench import cached_sequence\n"
+              f"for tag, kw in {RENDERS!r}:\n"
+              "    cached_sequence(tag, **kw)")
+
+
+def _rendered(i):
+    """RENDERS[i] with float frames, from the cache the prerender process
+    fills, or rendered here when it is not there yet."""
+    from spslam_tpu_torch.bench import load_cached
+    from spslam_tpu_torch.io.synthetic import make_sequence
+
+    tag, kw = RENDERS[i]
+    t0 = time.perf_counter()
+    seq = load_cached(tag, **kw)
+    how = "read from the prerender's cache"
+    if seq is None:
+        seq, how = make_sequence(**kw), "rendered"
+    print(f"  {tag}: {len(seq.frames)} frames {how} in {time.perf_counter() - t0:.1f} s")
+    return seq
 
 
 def bench_phase(prerender):
     """The port's bench (point and planes lanes, one pass each) in a
     subprocess, as a user runs it, once `prerender` (the process rendering
-    its 40 frames into the bench's cache while the earlier phases ran) has
+    its BENCH_FRAMES frames into the bench's cache while the earlier phases ran) has
     ended."""
     t0 = time.perf_counter()
     rc = prerender.wait(timeout=600)
     print(f"  the bench's render (niced, beside the earlier phases) ended with {rc}; waited "
           f"{time.perf_counter() - t0:.1f} s for it")
-    env = dict(os.environ, BENCH_PASSES="1", BENCH_LOWTEX="0", BENCH_LOOP="0")
+    env = dict(os.environ, BENCH_FRAMES=str(BENCH_FRAMES), BENCH_PASSES="1", BENCH_LOWTEX="0",
+               BENCH_LOOP="0")
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, "-c", _BENCH], capture_output=True, text=True,
                          timeout=900, env=env, cwd=os.path.dirname(os.path.abspath(__file__)))
@@ -1540,10 +1661,10 @@ def bench_phase(prerender):
     lines = res.stdout.splitlines()
     out = json.loads([x for x in lines if x.startswith("{")][-1])
     launches = int([x for x in lines if x.startswith("B1_LAUNCHES")][-1].split()[1])
-    frames = 2 * (12 + 40)
+    frames = 2 * (12 + BENCH_FRAMES)
     print(f"  bench subprocess {wall:.1f} s: {json.dumps(out)}")
     print(f"  kernel launches {launches} for {frames} frames fed (two 12-frame warm-ups, "
-          f"two 40-frame passes)")
+          f"two {BENCH_FRAMES}-frame passes)")
     if set(out) != BENCH_KEYS:
         raise AssertionError(f"bench keys {sorted(out)} are not the reference's")
     if not (out["ate_rmse_m"] < 0.02 and out["planes_ate_rmse_m"] < 0.02):
@@ -1554,13 +1675,15 @@ def bench_phase(prerender):
 
 
 def host_sections_phase(seq):
-    """tools/profile_host on the path phase's 20 frames, 1 pass."""
+    """tools/profile_host on seq's frames, 1 pass."""
     from spslam_tpu_torch.ops import fast_cuda
     from spslam_tpu_torch.tools.profile_host import SECTIONS, profile, report
 
     fast_cuda.LAUNCHES = 0
     res = profile(seq, n_passes=1, device="cuda")[0]
     launches = fast_cuda.LAUNCHES
+    # the tool's warm-up tracks the first 12 frames (all of them, when fewer)
+    frames = min(12, len(seq.frames)) + len(seq.frames)
     acct_ms = report(0, res)
     perf = res["perf"]
     acct_s = sum(perf.values())
@@ -1568,7 +1691,7 @@ def host_sections_phase(seq):
     print(f"  sections accumulated: {', '.join(fired)}; {res['n']} frames resolved from the "
           f"fused step; accounted {acct_s:.3f} s of the pass's {res['wall']:.3f} s wall "
           f"({acct_ms:.2f} ms per resolved frame); kernel launches {launches} for "
-          f"{12 + len(seq.frames)} frames")
+          f"{frames} frames")
     if set(perf) - set(SECTIONS):
         raise AssertionError(f"sections outside the reference's: {set(perf) - set(SECTIONS)}")
     every_frame = ("upload", "snapshot", "dispatch", "wait_small", "decode", "need_kf")
@@ -1576,9 +1699,8 @@ def host_sections_phase(seq):
         raise AssertionError("a per-frame section was never timed")
     if not acct_s <= res["wall"]:
         raise AssertionError(f"accounted {acct_s} s > wall {res['wall']} s")
-    if launches != 12 + len(seq.frames):
-        raise AssertionError(f"kernel launched {launches} times for {12 + len(seq.frames)} "
-                             f"frames")
+    if launches != frames:
+        raise AssertionError(f"kernel launched {launches} times for {frames} frames")
     return dict(launches=launches)
 
 
@@ -1624,6 +1746,87 @@ def recall_phase(loop_seq, pool):
     if launches != n_built:
         raise AssertionError(f"kernel launched {launches} times for {n_built} frames")
     return dict(launches=launches)
+
+
+def tools_phase(seq):
+    """tools/ate_debug, profile_frame, profile_fused, profile_ab,
+    profile_pipeline, profile_tunnel and profile_xfer in-process at small
+    repetition counts; one kernel launch per frame each tool builds."""
+    import torch
+
+    from spslam_tpu_torch.ops import fast_cuda
+    from spslam_tpu_torch.tools import (ate_debug, profile_ab, profile_frame, profile_fused,
+                                        profile_pipeline, profile_tunnel, profile_xfer)
+    from spslam_tpu_torch.tracking.tracker import TrackerConfig
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = TrackerConfig()
+    total = 0
+
+    def counted(name, fn, frames_of):
+        nonlocal total
+        fast_cuda.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        launches, frames = fast_cuda.LAUNCHES, frames_of(out)
+        print(f"  {name}: {time.perf_counter() - t0:.1f} s, kernel launches {launches} for "
+              f"{frames} frames built")
+        if launches != frames:
+            raise AssertionError(f"{name}: kernel launched {launches} times for {frames} frames")
+        total += launches
+        return out
+
+    ate_seq = _head(seq, ATE_FRAMES)
+    runs = counted("ate_debug", lambda: [ate_debug.run(ate_seq, m, dev) for m in ("sync", "async")],
+                   lambda rs: len(rs) * ATE_FRAMES)
+    for r in runs:
+        print("    " + ate_debug.line(r))
+    if not (runs[0]["ate"] < 0.02 and runs[1]["ate"] < 0.03):
+        raise AssertionError(f"ate_debug ATE {runs[0]['ate']} / {runs[1]['ate']} m")
+
+    r = counted("profile_frame", lambda: profile_frame.profile(seq, cfg, dev, TOOL_N, 2),
+                lambda r: r["_frames"])
+    for k, v in r.items():
+        if not k.startswith("_"):
+            print(f"    {k:32s} {v:9.3f} ms")
+    rows = counted("profile_fused", lambda: profile_fused.profile(seq, cfg, dev, TOOL_N),
+                   lambda rows: len(rows) * (TOOL_N + 2))
+    for name, ms, k in rows:
+        print(f"    {name:36s} {ms:9.2f} ms per chained step, {k} kernels per step")
+    if not all(k and k > 0 for *_, k in rows):
+        raise AssertionError("profile_fused counted no kernel in a case")
+    ra, rb = counted("profile_ab", lambda: profile_ab.profile(seq, cfg, dev, TOOL_N, 2),
+                     lambda out: 2 * (1 + 2) * TOOL_N)
+    print(f"    real track_frame_step {['%.2f' % v for v in ra]} ms, replica "
+          f"{['%.2f' % v for v in rb]} ms per step")
+    x = profile_frame.fused_inputs(seq, cfg, dev)
+    hv = torch.tensor(True, device=dev)
+    want, got = counted("the step and its replica once", lambda: (
+        profile_frame.real_step(x, x["T0"], x["T0"], hv),
+        profile_ab.replica(x, x["T0"], x["T0"], hv)), lambda out: 2)
+    same = [torch.equal(g, w) for g, w in zip(got[1:], want[1:])]
+    print(f"    replica's out_small, out_big equal to the step's on the card: {same} "
+          f"(bit for bit on the CPU, tests/test_torch_tools_diag.py)")
+    r = counted("profile_pipeline", lambda: profile_pipeline.profile(seq, cfg, dev, TOOL_N),
+                lambda r: r["_frames"])
+    for k, v in r.items():
+        if not k.startswith("_"):
+            print(f"    {k:40s} {v:9.3f} ms/frame")
+    times = [ms for _, ms, _ in rows] + ra + rb + [v for k, v in r.items() if k[0] != "_"]
+    rows_t = profile_tunnel.profile(seq, dev, TOOL_N)
+    for label, page, pin in rows_t:
+        print(f"    tunnel {label:22s} pageable {page:7.3f} ms, pinned {pin:7.3f} ms")
+    curve = profile_xfer.size_curve(dev)
+    for kb, direction, memory, ms in curve:
+        print(f"    xfer {direction:4s} {memory:8s} {kb:6d} KB {ms:8.3f} ms "
+              f"({kb / 1024 / ms * 1000:8.1f} MB/s)")
+    par, seq_ms = profile_xfer.two_threads(dev)
+    print(f"    xfer 614 + 307 KB uploads: two threads {par:.3f} ms, in sequence {seq_ms:.3f} ms")
+    times += [v for _, a, b in rows_t for v in (a, b)] + [ms for *_, ms in curve] + [par, seq_ms]
+    if not all(np.isfinite(t) and t > 0 for t in times):
+        raise AssertionError("a tool measured a time that is not finite and positive")
+    return dict(launches=total)
 
 
 def main() -> int:
@@ -1686,26 +1889,30 @@ def _phases(t_start, card, spec, seq, prerender) -> int:
     phase("loop ops", loop_ops_phase, seq)
     loop = phase("loop path", loop_path_phase)
     reloc = phase("relocalization", reloc_phase)
+    lane = phase("loop lane", loop_lane_phase, prerender)
     phase("dist BA", dist_ba_phase)
     phase("dist GBA", dist_gba_phase, loop)
     async_ = phase("async path", async_path_phase, seq, path["steady_ms"])
-    dp = phase("dp", dp_phase, seq)
-    cli = phase("cli and native", cli_native_phase, seq, loop)
+    short = _head(seq, SHORT_FRAMES)
+    dp = phase("dp", dp_phase, short)
+    cli = phase("cli and native", cli_native_phase, short, loop)
     vocab = phase("vocab", vocab_phase, card)
     phase("api", api_phase, path)
     bench = phase("bench", bench_phase, prerender)
-    host = phase("host sections", host_sections_phase, seq)
+    host = phase("host sections", host_sections_phase, short)
     phase("weak scaling", weak_scaling_phase)
     recall = phase("recall", recall_phase, loop["seq"], vocab["pool"])
+    tools = phase("tools", tools_phase, seq)
 
     kernels = [dict(
         name="fast_nms", route="cuda", source="spslam_tpu_torch/csrc/fast_nms.cu",
         replaces="spslam_tpu/ops/fast_pallas.py:99",
         # every path's run: point, planes, loop, relocalization, async,
-        # data-parallel (2 Systems), the CLI's subprocess, the vocabulary
-        # trainer, the bench's subprocess, the host sections and the recall
-        launches=sum(r["launches"] for r in (path, planes, loop, reloc, async_, dp, cli, vocab,
-                                             bench, host, recall)),
+        # the loop lane, data-parallel (2 Systems), the CLI's subprocess, the
+        # vocabulary trainer, the bench's subprocess, the host sections, the
+        # recall and the tools
+        launches=sum(r["launches"] for r in (path, planes, loop, reloc, lane, async_, dp, cli,
+                                             vocab, bench, host, recall, tools)),
         max_abs_err=kern["max_abs_err"],
         # per frame: the one launch over the 8 levels of a pyramid
         ms=kern["ms"], plain_ms=kern["plain_ms"],

@@ -115,6 +115,8 @@ class LoopCloser:
         self.last_inliers = 0
         # detection-chain progress and closures, a few entries per run
         self.events: list[dict] = []
+        # the gates of the last keyframe detection ran on (tools/debug_loop)
+        self.last_gates: dict | None = None
         # RANSAC hypothesis draw: (valid [N] numpy) -> [256, 3] indices
         self._gen = torch.Generator().manual_seed(17)
         self.draw = lambda valid: draw_hypotheses(valid, self._gen)
@@ -141,21 +143,9 @@ class LoopCloser:
             self.kfdb.add(kf, bow)
             return False
 
-        covis = st.covisibility(kf, min_weight=5)
-        exclude = set(int(c) for c in covis) | {int(kf)}
-        ks = np.arange(st.n_kf)
-        near = (
-            (np.abs(st.kf_frame_id[: st.n_kf] - int(st.kf_frame_id[kf])) < 1)
-            | (kf - ks < self.cfg.min_interval_kfs)
-        )
-        exclude |= set(map(int, ks[near]))
-        # candidates must score at least as high as the weakest covisible
-        # keyframe (DetectLoop's minScore), above a floor
-        min_score = self.cfg.min_score_floor
-        covis_scores = [s for s in (bow_similarity(bow, self.kfdb.bow.get(int(c), {}))
-                                    for c in covis) if s > 0]
-        if covis_scores:
-            min_score = max(min_score, min(covis_scores))
+        exclude, covis_min, min_score = self._gates(kf, bow)
+        self.last_gates = dict(kf=int(kf), bow=bow, exclude=exclude, covis_min=covis_min,
+                               min_score=min_score)
         cands = self.kfdb.query(bow, exclude, min_score)
         self.kfdb.add(kf, bow)
         cands = self._acc_score_filter(cands)
@@ -192,6 +182,29 @@ class LoopCloser:
                 self._log_closure(kf, cand, "first")
                 return True
         return False
+
+    def _gates(self, kf: int, bow: dict) -> tuple[set, float | None, float]:
+        """The detector's gates for keyframe kf with BoW vector bow: the
+        keyframes its query excludes (kf, its covisible keyframes and those
+        too near in frames or keyframes), the weakest covisible keyframe's
+        BoW score (None when none scores) and the min-score: candidates
+        must score at least that (DetectLoop's minScore), above a floor."""
+        st = self.store
+        covis = st.covisibility(kf, min_weight=5)
+        exclude = set(int(c) for c in covis) | {int(kf)}
+        ks = np.arange(st.n_kf)
+        near = (
+            (np.abs(st.kf_frame_id[: st.n_kf] - int(st.kf_frame_id[kf])) < 1)
+            | (kf - ks < self.cfg.min_interval_kfs)
+        )
+        exclude |= set(map(int, ks[near]))
+        covis_scores = [s for s in (bow_similarity(bow, self.kfdb.bow.get(int(c), {}))
+                                    for c in covis) if s > 0]
+        covis_min = min(covis_scores) if covis_scores else None
+        min_score = self.cfg.min_score_floor
+        if covis_min is not None:
+            min_score = max(min_score, covis_min)
+        return exclude, covis_min, min_score
 
     def _log_closure(self, kf: int, cand: int, early):
         self.events.append(dict(

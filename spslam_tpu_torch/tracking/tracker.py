@@ -331,6 +331,19 @@ def track_frame_step(frame_gray, frame_depth, T_prev, T_prev2, has_vel, pt_pack,
         opt2 = _plane_refine(opt2, frame, depth, frame_gray.shape[0], match_idx, matched,
                              pt_pos, pl_pack, intr, plane_info, plane_assoc_cos,
                              plane_assoc_dist, plane_min_support)
+    out_small, out_big = _pack_frame(frame, opt2, match_idx, matched, n_seed, n_fb, th_depth,
+                                     depth_factor)
+    return frame, out_small, out_big
+
+
+def _pack_frame(frame: FrameData, opt2, match_idx, matched, n_seed, n_fb, th_depth,
+                depth_factor: float):
+    """The fused step's two output buffers (track_frame_step's layouts):
+    out_small from the tight stage's result (opt2, match_idx, matched), the
+    seed stage's inlier counts and the keyframe statistics; out_big, the
+    frame's host fields packed so a keyframe download is one transfer (the
+    counterpart of the reference's `_pack_frame`, which packs the frame
+    only)."""
     kp_idx = torch.clamp_min(match_idx, 0).long()
     kp_depth = frame.depth[kp_idx]
     close = (kp_depth > 1e-3) & (kp_depth < th_depth)
@@ -363,7 +376,7 @@ def track_frame_step(frame_gray, frame_depth, T_prev, T_prev2, has_vel, pt_pack,
         | (ang_b << 24)
     )
     out_big = torch.cat([to_int32_bits(w0), to_int32_bits(w1), frame.desc.reshape(-1)])
-    return frame, out_small, out_big
+    return out_small, out_big
 
 
 def unpack_track_small(buf: np.ndarray, n_local: int):

@@ -8,9 +8,19 @@ Tolerance: the port's ATE within 1.5 mm of the JAX run's on the same
 frames, both under 20 mm (the integration test's bound); the two runs
 differ by float32 summation order and rare orientation-bin flips, which
 can change a keyframe decision.
+
+tools/ate_debug's synchronous run (local BA, th_depth 5.0) on the first 4
+frames against the reference tool's System: the same keyframes and summed
+kf metric, the ATE within 1e-4 m, the valid points within 0.2%.  The
+points differ by one: one fuse decision there turns on a point's predicted
+pyramid level, ceil(log(max_dist / dist) / log 1.2) with the ratio at
+3.0000003, which float32 rounding puts at level 3 in the port and 4 in the
+reference; at 4 a second point ties on Hamming distance and the fuse is
+refused, at 3 it is made.
 """
 
 import ast
+import dataclasses
 import os
 
 import numpy as np
@@ -114,6 +124,31 @@ def test_jax_map_tracked_by_port(seq, runs, tmp_path):
     tsys.save_trajectory_tum(str(tmp_path / "traj.txt"))
     lines = (tmp_path / "traj.txt").read_text().strip().splitlines()
     assert len(lines) == 1 and len(lines[0].split()) == 8
+
+
+def test_ate_debug_sync_matches_reference(seq, runs):
+    """tools/ate_debug's synchronous run against the reference tool's
+    System on the first 4 frames, held as the module docstring says.  It
+    takes `runs` so that the JAX System there has compiled the steps the
+    two share."""
+    from spslam_tpu.tracking.tracker import TrackerConfig as JTrackerConfig
+    from spslam_tpu_torch.tools import ate_debug
+
+    head = dataclasses.replace(seq, frames=seq.frames[:4], poses_gt=seq.poses_gt[:4],
+                               timestamps=seq.timestamps[:4])
+    got = ate_debug.run(head, "sync", "cpu")
+    jsys = JSystem(JSystemConfig(intr=JIntr(*seq.intr), local_ba=True,
+                                 tracker=JTrackerConfig(th_depth=5.0)))
+    for (gray, depth), ts in zip(head.frames, head.timestamps):
+        jsys.track_rgbd(gray, depth, ts)
+    jsys.shutdown()
+    want = dict(mode="sync", ate=float(j_ate(jsys.poses(), head.poses_gt)[0]),
+                kfs=int(jsys.store.kf_valid.sum()), pts=int(jsys.store.pt_valid.sum()),
+                metrics_kf=sum(m.get("kf", 0) for m in jsys.tracker.metrics))
+    assert (got["kfs"], got["metrics_kf"]) == (want["kfs"], want["metrics_kf"])
+    assert abs(got["pts"] - want["pts"]) <= 0.002 * want["pts"], (got, want)
+    assert got["ate"] == pytest.approx(want["ate"], rel=0, abs=1e-4)
+    assert ate_debug.line(got).startswith("sync      : ATE ")
 
 
 def _imports(path):

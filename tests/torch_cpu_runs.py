@@ -8,6 +8,7 @@ tests/test_torch_lowtex.py).
     python -m tests.torch_cpu_runs loop64 [--feed u8|float] [--threads N] [--which jax,port]
                                           [--gba-inline] [--device cpu|cuda] [--repeat N]
                                           [--out PREFIX] [--step-check] [--frames N]
+                                          [--n-frames N] [--async-mapping]
     python -m tests.torch_cpu_runs compare A.npz B.npz ...
     python -m tests.torch_cpu_runs resolve PREFIX_port_cuda_0_ba_worst.npz [--threads N]
 
@@ -18,8 +19,12 @@ depth as chip_smoke.py does, `float` the float gray and meters of the
 integration test.  planes15: the 15-frame orbit with planes
 (tests/integration/test_slam_planes.py), u8 feed.  Prints one JSON line
 per System: package, planes on/off, ATE, LOST frames, keyframes, map
-planes; loop64 adds each closure (keyframe, the frame it was made from,
-candidate, inliers, early).  `--out PREFIX` saves
+planes; loop64 adds each closure (tools/loop_lane_debug.closure_truth:
+the keyframes and their frames, the ground-truth view gap, the loop edge's
+error against the ground truth, inliers, early).  `--async-mapping` maps
+and closes loops on the worker thread, as the bench's lanes do (pacing at
+30 fps never sleeps where a call takes longer than a frame, as on the
+CPU).  `--out PREFIX` saves
 each run's poses and keyframe frames to PREFIX_<package>_<device>_<i>.npz,
 for comparing runs frame by frame with `python -m tests.torch_cpu_runs
 compare A.npz B.npz ...` (tracked poses before any loop correction, and
@@ -30,7 +35,10 @@ lie apart, and the same for every local and global bundle adjustment:
 that tells a step that computes something else on the card from a
 trajectory that chaos took elsewhere.  With `--out` it saves the bundle
 adjustment whose point gap was largest; `resolve` solves it again here.  `--frames N` cuts the
-sequence.
+sequence.  `--n-frames N` sets the length loop64 renders (64 by default;
+128 is the bench's loop lane, `spslam_tpu_torch.bench`'s BENCH_LOOP_FRAMES:
+the 1.25 turns of yaw then span 128 frames, so the sequence is not the
+64-frame one cut or extended).
 """
 
 import argparse
@@ -42,7 +50,7 @@ import numpy as np
 import torch
 
 
-def _system(pkg, intr, use_planes, lowtex, use_loop=False, device="cpu"):
+def _system(pkg, intr, use_planes, lowtex, use_loop=False, device="cpu", async_mapping=False):
     if pkg == "jax":
         from spslam_tpu.geometry.camera import Intrinsics
         from spslam_tpu.system import System, SystemConfig
@@ -55,8 +63,8 @@ def _system(pkg, intr, use_planes, lowtex, use_loop=False, device="cpu"):
         dev = dict(device=device)
     tracker = TrackerConfig(th_depth=3.2, pipeline_depth=2) if lowtex else TrackerConfig()
     return System(SystemConfig(intr=intr, local_ba=True, use_planes=use_planes,
-                               use_loop=use_loop, enable_reloc=use_loop, tracker=tracker),
-                  **dev)
+                               use_loop=use_loop, enable_reloc=use_loop, tracker=tracker,
+                               async_mapping=async_mapping), **dev)
 
 
 def compare(files):
@@ -108,8 +116,8 @@ def compare(files):
             out[f"worst_{name}"] = [
                 (int(f_), round(float(err[f_]) * 1e3, 1),
                  round(float(terr[f_]) * 1e3, 1) if "tracked" in r else None,
-                 int(r["inliers"][f_]) if "inliers" in r else None,
-                 int(r["ref"][f_]) if "ref" in r else None)
+                 int(r["inliers"][f_]) if "inliers" in r and f_ < len(r["inliers"]) else None,
+                 int(r["ref"][f_]) if "ref" in r and f_ < len(r["ref"]) else None)
                 for f_ in np.argsort(-err)[:3]]
         print(json.dumps(out), flush=True)
 
@@ -261,6 +269,10 @@ def main():
     ap.add_argument("--out", default=None)
     ap.add_argument("--step-check", action="store_true")
     ap.add_argument("--frames", type=int, default=None)
+    ap.add_argument("--n-frames", type=int, default=64,
+                    help="loop64: the length of the rendered loop sequence")
+    ap.add_argument("--async-mapping", action="store_true",
+                    help="mapping and loop closing on the worker thread, as the bench's lanes")
     args = ap.parse_args()
     if args.run == "compare":
         return compare(args.files)
@@ -269,13 +281,14 @@ def main():
     torch.set_num_threads(args.threads)
     from spslam_tpu_torch.eval.ate import ate_rmse
     from spslam_tpu_torch.io.synthetic import make_sequence
+    from spslam_tpu_torch.tools.loop_lane_debug import closure_truth
 
     lowtex = args.run == "lowtex"
     loop = args.run == "loop64"
     if lowtex:
         seq = make_sequence(n_frames=30, low_texture=True, depth_noise=0.008, seed=7)
     elif loop:
-        seq = make_sequence(n_frames=64, trajectory="loop", depth_noise=0.004)
+        seq = make_sequence(n_frames=args.n_frames, trajectory="loop", depth_noise=0.004)
     else:
         seq = make_sequence(n_frames=15)
     frames = seq.frames[: args.frames]
@@ -288,7 +301,8 @@ def main():
     for pkg, use_planes, i in runs:
         device = args.device if pkg == "port" else "cpu"
         t0 = time.perf_counter()
-        s = _system(pkg, seq.intr, use_planes, lowtex, use_loop=loop, device=device)
+        s = _system(pkg, seq.intr, use_planes, lowtex, use_loop=loop, device=device,
+                    async_mapping=args.async_mapping)
         if args.gba_inline and s.loop_closer is not None:
             s.loop_closer.cfg = dataclasses.replace(s.loop_closer.cfg, gba_async=False)
         steps, bas, worst, unwraps = [], [], {}, []
@@ -311,10 +325,9 @@ def main():
         ate = ate_rmse(poses, seq.poses_gt[: len(frames)])[0]
         st = s.store
         kf_frames = st.kf_frame_id[: st.n_kf].copy()
-        closed = [
-            (e["kf"], int(kf_frames[e["kf"]]), e["cand"], e.get("inliers"), e["early"])
-            for e in (s.loop_closer.events if s.loop_closer else []) if e["kind"] == "closed"
-        ]
+        lc = s.loop_closer
+        closed = closure_truth(lc.events, lc.loop_edges, kf_frames, seq.poses_gt,
+                               seq.intr) if lc else []
         if args.out:
             if worst:
                 np.savez(f"{args.out}_{pkg}_{device}_{i}_ba_worst.npz", **worst)
@@ -331,7 +344,7 @@ def main():
             lost=sum(1 for m in s.tracker.metrics if m["state"] == "LOST"),
             keyframes=int(s.store.n_kf), map_planes=int(s.store.pl_valid.sum()),
             closures=s.loop_closer.n_loops_closed if s.loop_closer else 0,
-            gba_inline=args.gba_inline,
+            gba_inline=args.gba_inline, async_mapping=args.async_mapping,
             step_check=_step_summary(steps) if steps else None,
             ba_check=_ba_summary(bas) if bas else None,
             max_call_s=round(max(calls), 2),
