@@ -37,7 +37,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, tracing
 from ..geometry import np_lie
 from ..geometry.camera import Intrinsics, project, unproject
 from ..geometry.lie import se3_apply, se3_inverse
@@ -128,60 +128,61 @@ class LoopCloser:
         """Index the new keyframe (vocabulary training + KFDB add) and, when
         `detect`, run loop detection and closure.  Returns True when a loop
         closed."""
-        st = self.store
-        descs = st.kf_desc[kf][st.kf_kp_valid[kf]]
-        if not self.vocab.trained:
-            self.vocab.add_training_descriptors(descs)
+        with tracing.span("loop.keyframe"):
+            st = self.store
+            descs = st.kf_desc[kf][st.kf_kp_valid[kf]]
             if not self.vocab.trained:
+                self.vocab.add_training_descriptors(descs)
+                if not self.vocab.trained:
+                    return False
+                # vocabulary just trained: backfill the earlier keyframes
+                for k in range(st.n_kf):
+                    if k != kf and st.kf_valid[k] and k not in self.kfdb.bow:
+                        self.kfdb.add(k, self.vocab.bow_vector(st.kf_desc[k][st.kf_kp_valid[k]]))
+            bow = self.vocab.bow_vector(descs)
+            if not detect:
+                self.kfdb.add(kf, bow)
                 return False
-            # vocabulary just trained: backfill the earlier keyframes
-            for k in range(st.n_kf):
-                if k != kf and st.kf_valid[k] and k not in self.kfdb.bow:
-                    self.kfdb.add(k, self.vocab.bow_vector(st.kf_desc[k][st.kf_kp_valid[k]]))
-        bow = self.vocab.bow_vector(descs)
-        if not detect:
+
+            exclude, covis_min, min_score = self._gates(kf, bow)
+            self.last_gates = dict(kf=int(kf), bow=bow, exclude=exclude, covis_min=covis_min,
+                                   min_score=min_score)
+            cands = self.kfdb.query(bow, exclude, min_score)
             self.kfdb.add(kf, bow)
-            return False
+            cands = self._acc_score_filter(cands)
+            if not cands:
+                self._consistent = []
+                return False
 
-        exclude, covis_min, min_score = self._gates(kf, bow)
-        self.last_gates = dict(kf=int(kf), bow=bow, exclude=exclude, covis_min=covis_min,
-                               min_score=min_score)
-        cands = self.kfdb.query(bow, exclude, min_score)
-        self.kfdb.add(kf, bow)
-        cands = self._acc_score_filter(cands)
-        if not cands:
-            self._consistent = []
-            return False
-
-        cand_groups = [
-            (cand, set(int(c) for c in st.covisibility(cand, min_weight=5)) | {cand})
-            for cand, _score in cands
-        ]
-        accepted, near = self._consistency_check(cand_groups)
-        self.events.append(dict(
-            kind="detect", kf=int(kf),
-            cands=[(int(c), round(float(s), 4)) for c, s in cands[:3]],
-            chain=max((c for _, c in self._consistent), default=0),
-            accepted=list(map(int, accepted)), near=list(map(int, near)),
-        ))
-        for cand in accepted:
-            if self._close_loop(kf, cand):
-                self._log_closure(kf, cand, False)
-                return True
-        if self.cfg.early_close_inlier_scale > 0:
-            for cand in near:
-                if self._close_loop(kf, cand, inlier_scale=self.cfg.early_close_inlier_scale):
-                    self._log_closure(kf, cand, True)
+            cand_groups = [
+                (cand, set(int(c) for c in st.covisibility(cand, min_weight=5)) | {cand})
+                for cand, _score in cands
+            ]
+            accepted, near = self._consistency_check(cand_groups)
+            self.events.append(dict(
+                kind="detect", kf=int(kf),
+                cands=[(int(c), round(float(s), 4)) for c, s in cands[:3]],
+                chain=max((c for _, c in self._consistent), default=0),
+                accepted=list(map(int, accepted)), near=list(map(int, near)),
+            ))
+            for cand in accepted:
+                if self._close_loop(kf, cand):
+                    self._log_closure(kf, cand, False)
                     return True
-        # first-sight path: the top candidate alone, at its own bar
-        if self.cfg.first_sight_inlier_scale > 0 and cands:
-            cand = int(cands[0][0])
-            if cand not in accepted and cand not in near and self._close_loop(
-                kf, cand, inlier_scale=self.cfg.first_sight_inlier_scale
-            ):
-                self._log_closure(kf, cand, "first")
-                return True
-        return False
+            if self.cfg.early_close_inlier_scale > 0:
+                for cand in near:
+                    if self._close_loop(kf, cand, inlier_scale=self.cfg.early_close_inlier_scale):
+                        self._log_closure(kf, cand, True)
+                        return True
+            # first-sight path: the top candidate alone, at its own bar
+            if self.cfg.first_sight_inlier_scale > 0 and cands:
+                cand = int(cands[0][0])
+                if cand not in accepted and cand not in near and self._close_loop(
+                    kf, cand, inlier_scale=self.cfg.first_sight_inlier_scale
+                ):
+                    self._log_closure(kf, cand, "first")
+                    return True
+            return False
 
     def _gates(self, kf: int, bow: dict) -> tuple[set, float | None, float]:
         """The detector's gates for keyframe kf with BoW vector bow: the

@@ -14,7 +14,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, tracing
 from ..geometry.camera import Intrinsics
 from ..map.store import MapStore
 from ..solver.ba import BAProblem, bundle_adjust
@@ -60,20 +60,25 @@ class LocalMapper:
     def process_keyframe(self, kf: int, run_ba: bool = True):
         """Point maintenance, culling, fusion, local BA, keyframe culling for
         a newly inserted keyframe (the reference's LocalMapping::Run step)."""
-        st = self.store
-        pts = st.kf_obs[kf]
-        pts = pts[pts >= 0]
-        with st.lock:
-            st.update_point_stats(pts)
-        self.cull_points(kf)
-        if self.cfg.fuse_neighbors and self.store.n_kf >= 3:
-            from .fuse import search_in_neighbors
+        with tracing.span("mapper.keyframe"):
+            st = self.store
+            pts = st.kf_obs[kf]
+            pts = pts[pts >= 0]
+            with st.lock:
+                st.update_point_stats(pts)
+            with tracing.span("mapper.cull_points"):
+                self.cull_points(kf)
+            if self.cfg.fuse_neighbors and self.store.n_kf >= 3:
+                from .fuse import search_in_neighbors
 
-            search_in_neighbors(self.store, self.intr, kf, self.device)
-        due = self.store.n_kf <= 5 or (self.store.n_kf % self.cfg.ba_every == 0)
-        if run_ba and self.store.n_kf >= 3 and due:
-            self.local_ba(kf)
-        self.cull_keyframes(kf)
+                with tracing.span("mapper.fuse"):
+                    search_in_neighbors(self.store, self.intr, kf, self.device)
+            due = self.store.n_kf <= 5 or (self.store.n_kf % self.cfg.ba_every == 0)
+            if run_ba and self.store.n_kf >= 3 and due:
+                with tracing.span("mapper.local_ba"):
+                    self.local_ba(kf)
+            with tracing.span("mapper.cull_keyframes"):
+                self.cull_keyframes(kf)
 
     def cull_points(self, kf: int):
         """Drop recent points with a poor found/visible ratio or too few

@@ -17,7 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, tracing
 from ..geometry import np_lie
 from ..geometry.camera import Intrinsics
 from ..geometry.plane import normalize_plane_np, transform_plane_np
@@ -61,34 +61,37 @@ class PlaneMapper:
         """Segment keyframe kf's depth (float meters or raw integer units),
         associate and merge its planes; returns the map-plane ids it
         observed.  (The reference also takes the gray image and ignores it.)"""
-        st = self.store
-        cfg = self.cfg
-        coefs_c, inliers, valid = self._segment(
-            depth.astype(np.int32) if depth.dtype.kind in "iu" else depth)
-        T_wc = np_lie.se3_inverse(st.kf_pose[kf])
-        observed_ids = []
-        for i in range(len(valid)):
-            if not valid[i] or inliers[i] < cfg.min_inliers:
-                continue
-            pi_c = coefs_c[i]
-            pi_w = normalize_plane_np(transform_plane_np(T_wc, pi_c))
-            l = self._associate(pi_w)
-            w = cfg.obs_weight_scale * float(inliers[i])
-            if l < 0:
-                l = st.add_plane(pi_w, kf, int(inliers[i]))
-            else:
-                # support-weighted running refinement of the world plane
-                w_old = float(st.pl_n_pts[l])
-                w_new = float(inliers[i])
-                old = st.pl_coef[l]
-                new = pi_w if np.dot(old[:3], pi_w[:3]) >= 0 else -pi_w
-                mixed = (w_old * old + w_new * new) / (w_old + w_new)
-                st.pl_coef[l] = normalize_plane_np(mixed.astype(np.float32))
-                st.pl_n_pts[l] = int(min(w_old + w_new, 2 ** 30))
-            st.add_plane_observation(l, kf, pi_cam=pi_c, weight=w)
-            observed_ids.append(l)
-        self._add_structural_edges(observed_ids)
-        return observed_ids
+        with tracing.span("planes.keyframe"):
+            st = self.store
+            cfg = self.cfg
+            with tracing.span("planes.segment"):
+                coefs_c, inliers, valid = self._segment(
+                    depth.astype(np.int32) if depth.dtype.kind in "iu" else depth)
+            with tracing.span("planes.associate"):
+                T_wc = np_lie.se3_inverse(st.kf_pose[kf])
+                observed_ids = []
+                for i in range(len(valid)):
+                    if not valid[i] or inliers[i] < cfg.min_inliers:
+                        continue
+                    pi_c = coefs_c[i]
+                    pi_w = normalize_plane_np(transform_plane_np(T_wc, pi_c))
+                    l = self._associate(pi_w)
+                    w = cfg.obs_weight_scale * float(inliers[i])
+                    if l < 0:
+                        l = st.add_plane(pi_w, kf, int(inliers[i]))
+                    else:
+                        # support-weighted running refinement of the world plane
+                        w_old = float(st.pl_n_pts[l])
+                        w_new = float(inliers[i])
+                        old = st.pl_coef[l]
+                        new = pi_w if np.dot(old[:3], pi_w[:3]) >= 0 else -pi_w
+                        mixed = (w_old * old + w_new * new) / (w_old + w_new)
+                        st.pl_coef[l] = normalize_plane_np(mixed.astype(np.float32))
+                        st.pl_n_pts[l] = int(min(w_old + w_new, 2 ** 30))
+                    st.add_plane_observation(l, kf, pi_cam=pi_c, weight=w)
+                    observed_ids.append(l)
+                self._add_structural_edges(observed_ids)
+            return observed_ids
 
     def _associate(self, pi_w: np.ndarray) -> int:
         """Nearest map plane within the angle + distance gates, else -1."""

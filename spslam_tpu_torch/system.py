@@ -20,7 +20,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from . import resolve_device
+from . import resolve_device, tracing
 from .geometry import np_lie
 from .geometry.camera import Intrinsics
 from .loop.loop_closer import LoopCloser, LoopConfig
@@ -59,49 +59,50 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 class System:
     def __init__(self, cfg: SystemConfig, device=None):
-        self.device = resolve_device(device)
-        self.cfg = cfg
-        if cfg.map.n_kp != cfg.tracker.n_features:
-            # the store's per-KF keypoint budget follows the feature budget
-            cfg.map = dataclasses.replace(cfg.map, n_kp=cfg.tracker.n_features)
-        self.store = MapStore(cfg.map)
-        self.tracker = Tracker(cfg.tracker, cfg.intr, self.store, device=self.device)
-        self.tracker.depth_factor = cfg.depth_map_factor
-        self.mapper = LocalMapper(cfg.mapper, cfg.intr, self.store, device=self.device)
-        if cfg.use_planes or cfg.use_loop:
-            # plane accuracy and loop detection are sensitive to keyframe
-            # cadence, which a deeper pipeline shifts (at depth 3 the
-            # reference's consistency chain never completed on the loop
-            # sequence): the reference caps both at depth 2
-            self.tracker.pipeline_depth = min(self.tracker.pipeline_depth, 2)
-        self.plane_mapper = None
-        if cfg.use_planes:
-            self.plane_mapper = PlaneMapper(cfg.intr, self.store,
-                                            cfg.plane_cfg or PlaneMapperConfig(),
-                                            device=self.device)
-            self.plane_mapper.depth_factor = cfg.depth_map_factor
-            self.tracker.use_planes = True
-        self.loop_closer = None
-        if cfg.use_loop or cfg.enable_reloc:
-            path = cfg.vocab_path
-            if path is None:
-                default = os.path.join(ROOT, DEFAULT_VOCAB_PATH)
-                path = default if os.path.exists(default) else None
-            vocab = Vocabulary(n_words=4096, device=self.device)
-            if path:
-                vocab.load(path)
-            self.loop_closer = LoopCloser(cfg.intr, self.store, vocab,
-                                          cfg=LoopConfig(gba_distributed=cfg.gba_distributed),
-                                          device=self.device)
-            self.tracker.relocalizer = (self.loop_closer.vocab, self.loop_closer.kfdb)
-        self.trajectory: list[tuple[float, np.ndarray]] = []
-        self._rel_trajectory: list[tuple[float, int, np.ndarray]] = []
-        self.pipeline = None
-        if cfg.async_mapping:
-            self.pipeline = AsyncMappingPipeline(self)
-            # the keyframe rate follows the mapper's throughput (the
-            # reference's bLocalMappingIdle gate)
-            self.tracker.mapper_queue_fn = self.pipeline.queue_len
+        with tracing.span("system.init"):
+            self.device = resolve_device(device)
+            self.cfg = cfg
+            if cfg.map.n_kp != cfg.tracker.n_features:
+                # the store's per-KF keypoint budget follows the feature budget
+                cfg.map = dataclasses.replace(cfg.map, n_kp=cfg.tracker.n_features)
+            self.store = MapStore(cfg.map)
+            self.tracker = Tracker(cfg.tracker, cfg.intr, self.store, device=self.device)
+            self.tracker.depth_factor = cfg.depth_map_factor
+            self.mapper = LocalMapper(cfg.mapper, cfg.intr, self.store, device=self.device)
+            if cfg.use_planes or cfg.use_loop:
+                # plane accuracy and loop detection are sensitive to keyframe
+                # cadence, which a deeper pipeline shifts (at depth 3 the
+                # reference's consistency chain never completed on the loop
+                # sequence): the reference caps both at depth 2
+                self.tracker.pipeline_depth = min(self.tracker.pipeline_depth, 2)
+            self.plane_mapper = None
+            if cfg.use_planes:
+                self.plane_mapper = PlaneMapper(cfg.intr, self.store,
+                                                cfg.plane_cfg or PlaneMapperConfig(),
+                                                device=self.device)
+                self.plane_mapper.depth_factor = cfg.depth_map_factor
+                self.tracker.use_planes = True
+            self.loop_closer = None
+            if cfg.use_loop or cfg.enable_reloc:
+                path = cfg.vocab_path
+                if path is None:
+                    default = os.path.join(ROOT, DEFAULT_VOCAB_PATH)
+                    path = default if os.path.exists(default) else None
+                vocab = Vocabulary(n_words=4096, device=self.device)
+                if path:
+                    vocab.load(path)
+                self.loop_closer = LoopCloser(cfg.intr, self.store, vocab,
+                                              cfg=LoopConfig(gba_distributed=cfg.gba_distributed),
+                                              device=self.device)
+                self.tracker.relocalizer = (self.loop_closer.vocab, self.loop_closer.kfdb)
+            self.trajectory: list[tuple[float, np.ndarray]] = []
+            self._rel_trajectory: list[tuple[float, int, np.ndarray]] = []
+            self.pipeline = None
+            if cfg.async_mapping:
+                self.pipeline = AsyncMappingPipeline(self)
+                # the keyframe rate follows the mapper's throughput (the
+                # reference's bLocalMappingIdle gate)
+                self.tracker.mapper_queue_fn = self.pipeline.queue_len
 
     # -----------------------------------------------------------------
     def track_rgbd(self, gray: np.ndarray, depth: np.ndarray, ts: float):
@@ -216,13 +217,14 @@ class System:
         self.cfg.localization_only = False
 
     def shutdown(self):
-        for rec in self.tracker.flush_pipeline():
-            self._absorb(rec)
-        if self.pipeline is not None:
-            self.pipeline.shutdown()
-        lc = self.loop_closer
-        # one more global BA over the closed map, only when no solve is
-        # still in flight (two solves would race their merges)
-        if (lc is not None and lc.wait_gba() and lc.n_loops_closed > 0
-                and not self.cfg.localization_only):
-            lc._run_gba()
+        with tracing.span("system.shutdown"):
+            for rec in self.tracker.flush_pipeline():
+                self._absorb(rec)
+            if self.pipeline is not None:
+                self.pipeline.shutdown()
+            lc = self.loop_closer
+            # one more global BA over the closed map, only when no solve is
+            # still in flight (two solves would race their merges)
+            if (lc is not None and lc.wait_gba() and lc.n_loops_closed > 0
+                    and not self.cfg.localization_only):
+                lc._run_gba()

@@ -21,6 +21,10 @@ worker sets the thread's current device; every batched Jacobian takes
 `solver/ba.batched_jacfwd`'s lock).  A keyframe whose mapping raises is
 logged (logger `spslam_tpu_torch.tracking.pipeline`) and the worker goes
 on, as the reference's does.
+
+With the span recorder on (`tracing.py`), each keyframe's wait in the
+queue, from `submit` to the worker taking it up, is a `pipeline.queue_wait`
+span on the worker's thread, and its mapping a `worker.keyframe` span.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ import time
 from collections import deque
 
 import torch
+
+from .. import tracing
 
 log = logging.getLogger(__name__)
 
@@ -50,8 +56,9 @@ class AsyncMappingPipeline:
 
     # -----------------------------------------------------------------
     def submit(self, kf: int, gray, depth):
+        t_submit = time.time_ns() if tracing.ENABLED else 0
         with self._cv:
-            self._queue.append((kf, gray, depth))
+            self._queue.append((kf, gray, depth, t_submit))
             self.n_submitted += 1
             self._cv.notify()
 
@@ -92,23 +99,16 @@ class AsyncMappingPipeline:
                 items = list(self._queue)
                 self._queue.clear()
                 self._busy = True
+            for *_, t_submit in items:
+                if t_submit:
+                    tracing.mark("pipeline.queue_wait", t_submit)
             try:
-                for i, (kf, gray, depth) in enumerate(items):
+                for i, (kf, gray, depth, _) in enumerate(items):
                     newest = i == len(items) - 1
                     # one keyframe's failure must not end the worker
                     try:
-                        if sys_.plane_mapper is not None:
-                            sys_.plane_mapper.process_keyframe(kf, depth)
-                        sys_.mapper.process_keyframe(kf, run_ba=sys_.cfg.local_ba and newest)
-                        if sys_.loop_closer is not None:
-                            closed = sys_.loop_closer.process_keyframe(
-                                kf, detect=sys_.cfg.use_loop)
-                            if closed:
-                                with sys_.store.lock:
-                                    sys_.tracker.external_pose_correction(sys_.store.kf_pose[kf])
-                        # the write-back bumped the store version: re-gather
-                        # the tracker's snapshot here, off its critical path
-                        sys_.tracker.refresh_snapshot_values()
+                        with tracing.span("worker.keyframe"):
+                            self._process(kf, depth, newest)
                     except Exception:
                         log.exception("mapping worker: keyframe %d failed; continuing", kf)
                     self.n_processed += 1
@@ -116,3 +116,19 @@ class AsyncMappingPipeline:
             finally:
                 with self._cv:
                     self._busy = False
+
+    def _process(self, kf: int, depth, newest: bool):
+        """Map one keyframe: planes, local mapping (BA only on the newest of
+        a coalesced batch), loop closing, then the snapshot refresh."""
+        sys_ = self.system
+        if sys_.plane_mapper is not None:
+            sys_.plane_mapper.process_keyframe(kf, depth)
+        sys_.mapper.process_keyframe(kf, run_ba=sys_.cfg.local_ba and newest)
+        if sys_.loop_closer is not None:
+            closed = sys_.loop_closer.process_keyframe(kf, detect=sys_.cfg.use_loop)
+            if closed:
+                with sys_.store.lock:
+                    sys_.tracker.external_pose_correction(sys_.store.kf_pose[kf])
+        # the write-back bumped the store version: re-gather the tracker's
+        # snapshot here, off its critical path
+        sys_.tracker.refresh_snapshot_values()

@@ -25,13 +25,18 @@ with `non_blocking=True` and are awaited through one CUDA event per
 dispatch (on the CPU the same code runs synchronously).  A loop closure
 calls `external_pose_correction`, which drops the device pose chain at the
 next dispatch.
+
+With the span recorder on (`tracing.py`), each dispatch and resolve is a
+span (`tracker.dispatch_frame`, `tracker.resolve_frame`), the fused step's
+stages are its children (`step.build`, `step.coarse`, `step.fallback`,
+`step.tight`, `step.planes`, `step.pack`) and, with `Tracker.perf` on, each
+section is one too (`tracker.<section>`).
 """
 
 from __future__ import annotations
 
 import math
 import threading
-import time
 from dataclasses import dataclass
 from enum import Enum
 from typing import Optional
@@ -39,7 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, tracing
 from ..frontend.frame import FrameData, build_frame
 from ..geometry import np_lie
 from ..geometry.camera import Intrinsics, in_image, unproject
@@ -289,50 +294,56 @@ def track_frame_step(frame_gray, frame_depth, T_prev, T_prev2, has_vel, pt_pack,
       out_big:   w0 = u*16 | v*16 << 16; w1 = raw depth | (octave | valid
                  << 7) << 16 | angle/256 << 24; then desc [N, 8].
     """
-    vel = se3_compose(T_prev, se3_inverse(T_prev2))
-    T_pred = torch.where(has_vel, se3_compose(vel, T_prev), T_prev)
-    radius1 = torch.where(has_vel, radius_motion, 2.0 * radius_motion)
-    gray = frame_gray.to(torch.float32)
-    depth = decode_depth(frame_depth, depth_factor)
-    pt_pos = pt_pack[:, 0:3]
-    pt_normal = pt_pack[:, 3:6]
-    pt_mind = pt_pack[:, 6]
-    pt_maxd = pt_pack[:, 7]
-    pt_valid = pt_pack[:, 8] > 0.5
-    pt_bits = unpack_bits(pt_desc)
-    frame = build_frame(gray, depth, spec, intr, n_features=n_features,
-                        th_high=th_high, th_low=th_low)
-    opt1, _, _ = _match_and_optimize(
-        T_pred, pt_pos, pt_normal, pt_mind, pt_maxd, pt_bits, pt_valid,
-        frame, radius1, TH_HIGH, intr, n_rounds=2, n_iters=5,
-    )
+    with tracing.span("step.build"):
+        vel = se3_compose(T_prev, se3_inverse(T_prev2))
+        T_pred = torch.where(has_vel, se3_compose(vel, T_prev), T_prev)
+        radius1 = torch.where(has_vel, radius_motion, 2.0 * radius_motion)
+        gray = frame_gray.to(torch.float32)
+        depth = decode_depth(frame_depth, depth_factor)
+        pt_pos = pt_pack[:, 0:3]
+        pt_normal = pt_pack[:, 3:6]
+        pt_mind = pt_pack[:, 6]
+        pt_maxd = pt_pack[:, 7]
+        pt_valid = pt_pack[:, 8] > 0.5
+        pt_bits = unpack_bits(pt_desc)
+        frame = build_frame(gray, depth, spec, intr, n_features=n_features,
+                            th_high=th_high, th_low=th_low)
+    with tracing.span("step.coarse"):
+        opt1, _, _ = _match_and_optimize(
+            T_pred, pt_pos, pt_normal, pt_mind, pt_maxd, pt_bits, pt_valid,
+            frame, radius1, TH_HIGH, intr, n_rounds=2, n_iters=5,
+        )
     # window-free global descriptor fallback, computed every frame and
     # selected below (the reference's lax.cond skips it on strong seeds)
-    res_fb = match_descriptors(pt_bits, frame.bits, pt_valid, frame.valid,
-                               max_dist=TH_LOW, ratio=0.85)
-    kp_fb = torch.clamp_min(res_fb.idx, 0).long()
-    opt_fb = _compact_pose_opt(
-        T_prev, pt_pos, frame.uv[kp_fb],
-        torch.where(res_fb.valid, frame.u_right[kp_fb], -1.0),
-        octave_inv_sigma2(frame.octave[kp_fb]),
-        res_fb.valid, frame.uv.shape[0], intr, 2, 5,
-    )
-    run_fb = opt1.n_inliers < FALLBACK_SEED_GATE
-    T_fb = torch.where(run_fb, opt_fb.T_cw, T_prev)
-    n_fb = torch.where(run_fb, opt_fb.n_inliers, -1).to(torch.int32)
-    use_mm = opt1.n_inliers >= n_fb
-    T_seed = torch.where(use_mm, opt1.T_cw, T_fb)
-    n_seed = torch.maximum(opt1.n_inliers, n_fb)
-    opt2, match_idx, matched = _match_and_optimize(
-        T_seed, pt_pos, pt_normal, pt_mind, pt_maxd, pt_bits, pt_valid,
-        frame, radius2, TH_HIGH, intr, n_rounds=4, n_iters=10,
-    )
+    with tracing.span("step.fallback"):
+        res_fb = match_descriptors(pt_bits, frame.bits, pt_valid, frame.valid,
+                                   max_dist=TH_LOW, ratio=0.85)
+        kp_fb = torch.clamp_min(res_fb.idx, 0).long()
+        opt_fb = _compact_pose_opt(
+            T_prev, pt_pos, frame.uv[kp_fb],
+            torch.where(res_fb.valid, frame.u_right[kp_fb], -1.0),
+            octave_inv_sigma2(frame.octave[kp_fb]),
+            res_fb.valid, frame.uv.shape[0], intr, 2, 5,
+        )
+        run_fb = opt1.n_inliers < FALLBACK_SEED_GATE
+        T_fb = torch.where(run_fb, opt_fb.T_cw, T_prev)
+        n_fb = torch.where(run_fb, opt_fb.n_inliers, -1).to(torch.int32)
+        use_mm = opt1.n_inliers >= n_fb
+        T_seed = torch.where(use_mm, opt1.T_cw, T_fb)
+        n_seed = torch.maximum(opt1.n_inliers, n_fb)
+    with tracing.span("step.tight"):
+        opt2, match_idx, matched = _match_and_optimize(
+            T_seed, pt_pos, pt_normal, pt_mind, pt_maxd, pt_bits, pt_valid,
+            frame, radius2, TH_HIGH, intr, n_rounds=4, n_iters=10,
+        )
     if pl_pack is not None:
-        opt2 = _plane_refine(opt2, frame, depth, frame_gray.shape[0], match_idx, matched,
-                             pt_pos, pl_pack, intr, plane_info, plane_assoc_cos,
-                             plane_assoc_dist, plane_min_support)
-    out_small, out_big = _pack_frame(frame, opt2, match_idx, matched, n_seed, n_fb, th_depth,
-                                     depth_factor)
+        with tracing.span("step.planes"):
+            opt2 = _plane_refine(opt2, frame, depth, frame_gray.shape[0], match_idx, matched,
+                                 pt_pos, pl_pack, intr, plane_info, plane_assoc_cos,
+                                 plane_assoc_dist, plane_min_support)
+    with tracing.span("step.pack"):
+        out_small, out_big = _pack_frame(frame, opt2, match_idx, matched, n_seed, n_fb,
+                                         th_depth, depth_factor)
     return frame, out_small, out_big
 
 
@@ -496,9 +507,11 @@ class Tracker:
         # None = off, a dict turns it on
         self.perf: Optional[dict] = None
 
-    def _pt(self, key: str, t0: float) -> float:
-        """Add the host seconds since t0 to section `key` of self.perf and
-        return the current time.
+    def _pt(self, key: str, t0: tuple) -> tuple:
+        """Add the host seconds since t0 (a `tracing.stamp()`) to section
+        `key` of self.perf and return the current stamp; with the span
+        recorder on, the same two clock readings also record the section
+        as the span `tracker.<key>`, with the thread's CPU time in it.
 
         The sections of the pipelined path, summed over frames: upload,
         snapshot and dispatch in _dispatch; wait_small, decode, need_kf,
@@ -510,8 +523,9 @@ class Tracker:
         wait for the frame's small output, as with the reference's async
         dispatch.  With perf None each section costs one `is not None`
         test and no sync is added."""
-        t1 = time.perf_counter()
-        self.perf[key] = self.perf.get(key, 0.0) + (t1 - t0)
+        t1 = tracing.stamp()
+        self.perf[key] = self.perf.get(key, 0.0) + (t1[0] - t0[0]) * 1e-9
+        tracing.section("tracker." + key, t0, t1)
         return t1
 
     def _flush_stats(self):
@@ -582,7 +596,7 @@ class Tracker:
         cfg = self.cfg
         perf = self.perf
         if perf is not None:
-            t = time.perf_counter()
+            t = tracing.stamp()
         gray_t, depth_t = self._upload_frame(gray, depth)
         if perf is not None:
             t = self._pt("upload", t)
@@ -650,7 +664,7 @@ class Tracker:
         self.frame_id = p["frame_id"]
         perf = self.perf
         if perf is not None:
-            t = time.perf_counter()
+            t = tracing.stamp()
         if p["event"] is not None:
             p["event"].synchronize()
         if p["force_robust"]:
@@ -746,18 +760,25 @@ class Tracker:
                     gray=gray, depth=depth,
                 ))
                 return records
-        self._pending.append(self._dispatch(gray, depth, ts))
+        with tracing.span("tracker.dispatch_frame"):
+            p = self._dispatch(gray, depth, ts)
+        self._pending.append(p)
         while len(self._pending) > self.pipeline_depth:
-            records.append(self._resolve(self._pending.pop(0)))
+            records.append(self._resolve_next())
         return records
 
     def flush_pipeline(self):
         """Resolve all in-flight frames."""
         records = []
         while self._pending:
-            records.append(self._resolve(self._pending.pop(0)))
+            records.append(self._resolve_next())
         self._flush_stats()
         return records
+
+    def _resolve_next(self) -> FrameRecord:
+        """Resolve the oldest in-flight frame."""
+        with tracing.span("tracker.resolve_frame"):
+            return self._resolve(self._pending.pop(0))
 
     # -----------------------------------------------------------------
     def _initialize(self, frame: FrameData, ts: float):
@@ -804,23 +825,24 @@ class Tracker:
         the async mapper's thread after its write-back, so the tracker's
         next dispatch does not pay the gather.  The cache tuple is replaced
         whole, so a concurrent move of ref_kf only makes this a no-op."""
-        st = self.store
-        cached = self._snapshot_cache
-        if cached is None:
-            return
-        if cached[0] != (st.topo_version, self.ref_kf):
+        with tracing.span("tracker.refresh_snapshot"):
+            st = self.store
+            cached = self._snapshot_cache
+            if cached is None:
+                return
+            if cached[0] != (st.topo_version, self.ref_kf):
+                with st.lock:
+                    key_topo = (st.topo_version, self.ref_kf)
+                    snap = self._local_snapshot_build()
+                    self._snapshot_cache = (key_topo, st.version, snap)
+                return
+            if cached[1] == st.version:
+                return
             with st.lock:
-                key_topo = (st.topo_version, self.ref_kf)
-                snap = self._local_snapshot_build()
-                self._snapshot_cache = (key_topo, st.version, snap)
-            return
-        if cached[1] == st.version:
-            return
-        with st.lock:
-            ids = cached[2][0]
-            snap = (ids, *self._snapshot_gather(ids, desc_cached=cached[2][2]))
-            ver = st.version
-        self._snapshot_cache = (cached[0], ver, snap)
+                ids = cached[2][0]
+                snap = (ids, *self._snapshot_gather(ids, desc_cached=cached[2][2]))
+                ver = st.version
+            self._snapshot_cache = (cached[0], ver, snap)
 
     def _snapshot_gather(self, ids: np.ndarray, desc_cached=None):
         """Upload pack (+ desc unless the cached device copy is passed: for

@@ -5,8 +5,9 @@ against spslam_tpu's on the CPU, and its cost to the result.
   System with the same config (no local BA, synchronous mapping, pipeline
   depth 3) and `tracker.perf = {}`: the same section keys and the same
   n_frames (frames resolved from the fused step), exactly.
-* The port's poses with `perf = {}` equal its poses with `perf = None`
-  bit for bit (the accounting reads the clock and nothing else).
+* The port's poses with `perf = {}` and the span recorder on equal its
+  poses with `perf = None` and the recorder off bit for bit (the
+  accounting and the spans read the clock and nothing else).
 """
 
 import numpy as np
@@ -15,6 +16,7 @@ import pytest
 from spslam_tpu.geometry.camera import Intrinsics as JIntr
 from spslam_tpu.system import System as JSystem, SystemConfig as JSystemConfig
 from spslam_tpu.tracking.tracker import TrackerConfig as JTrackerConfig
+from spslam_tpu_torch import tracing
 from spslam_tpu_torch.bench import quantized
 from spslam_tpu_torch.geometry.camera import Intrinsics
 from spslam_tpu_torch.io.synthetic import make_sequence
@@ -49,7 +51,14 @@ def _port():
 
 @pytest.fixture(scope="module")
 def port_run(seq):
-    return _run(_port(), seq, {})
+    """The port with perf on and the span recorder on (tests/test_torch_
+    tracing.py holds the spans themselves)."""
+    tracing.enable()
+    try:
+        return _run(_port(), seq, {})
+    finally:
+        tracing.disable()
+        tracing.reset()
 
 
 def test_sections_match_reference(seq, port_run):
