@@ -20,7 +20,13 @@
 4. Path phase: the port's System (point-only tracking + local BA) on a
    20-frame 640x480 synthetic sequence, 1024 features, 8 levels, from the
    entry point a user calls; asserts no LOST frame, ATE < 0.02 m and
-   exactly one kernel launch per frame.
+   exactly one kernel launch per frame.  Then the BA graph phase: three
+   successive local-BA windows of that map, the third with two planes and
+   a structural edge added, through mapping/ba_graph.py with a cache of
+   its own: each replay bit-equal to bundle_adjust run eagerly (or within
+   1e-6 m with the same inliers), one capture for the three; prints host
+   ms of eager and replayed BAs and the device ms of each under the
+   profiler.
 5. Segmentation phase: segment_planes on the card against the CPU on
    frame 2 of that sequence, at 640x480 (the plane mapper's input) and at
    the 320x240 stride-2 depth (the fused step's): equal valid counts, the
@@ -496,7 +502,98 @@ def path_phase(seq):
         raise AssertionError(f"kernel launched {launches} times for {len(frames)} frames "
                              f"({n_fused} through the fused step)")
     return dict(launches=launches, n_fused=n_fused, ate=ate, steady_ms=steady_ms,
-                poses=poses, poses_gt=seq.poses_gt)
+                poses=poses, poses_gt=seq.poses_gt, mapper=sys_.mapper)
+
+
+# two perpendicular world planes (a floor and a wall) and their weights,
+# added to the BA graph phase's third window
+BA_PLANES = np.array([[0.0, 1.0, 0.0, 1.2], [1.0, 0.0, 0.0, 2.0]], np.float32)
+BA_PLANE_W, BA_EDGE_W = 50.0, 10.0
+
+
+def _with_planes(prob):
+    """The host problem `prob` with BA_PLANES (their distances 2 cm off)
+    observed from each of its valid poses, and a perpendicular edge."""
+    import torch
+
+    from spslam_tpu_torch.geometry.plane import transform_plane_np
+
+    rng = np.random.default_rng(11)
+    a = {k: v.numpy().copy() for k, v in prob._asdict().items()}
+    poses = a["poses"][a["pose_valid"]]
+    a["planes"][:2] = BA_PLANES + np.array([0, 0, 0, 0.02], np.float32)
+    a["plane_valid"][:2] = True
+    q = 0
+    for cam, T in enumerate(poses):
+        for l, pi in enumerate(BA_PLANES):
+            if q < len(a["pobs_cam"]):
+                a["pobs_cam"][q], a["pobs_plane"][q] = cam, l
+                a["pobs_pi"][q] = transform_plane_np(T, pi) + rng.normal(0, 1e-3, 4)
+                a["pobs_w"][q], a["pobs_valid"][q] = BA_PLANE_W, True
+                q += 1
+    a["pp_a"][0], a["pp_b"][0], a["pp_type"][0] = 0, 1, 1
+    a["pp_w"][0], a["pp_valid"][0] = BA_EDGE_W, True
+    return type(prob)(**{k: torch.from_numpy(v) for k, v in a.items()})
+
+
+def ba_graph_phase(path):
+    """Three successive local-BA windows of the path phase's map, the third
+    with two planes and a structural edge added (the plane terms' batched
+    Jacobians inside the graph): mapping/ba_graph.py with a cache of its
+    own against bundle_adjust run eagerly on the same problems."""
+    import torch
+
+    from spslam_tpu_torch.mapping import ba_graph
+    from spslam_tpu_torch.solver.ba import bundle_adjust
+
+    mapper = path["mapper"]
+    cfg, intr, dev = mapper.cfg, mapper.intr, mapper.device
+    print(f"  the path phase's process cache: {ba_graph.GRAPHS.captures} capture(s), "
+          f"{ba_graph.GRAPHS.replays} replays, {ba_graph.GRAPHS.failures} failed captures")
+    kfs = np.nonzero(mapper.store.kf_valid)[0][-3:]
+    probs = [mapper._host_problem(int(kf)) for kf in kfs]
+    if len(probs) < 3 or any(p is None for p in probs):
+        raise AssertionError(f"keyframes {kfs}: not three local-BA windows")
+    probs = [p[0] for p in probs]
+    probs[2] = _with_planes(probs[2])
+
+    def eager(p):
+        return ba_graph.fetch(bundle_adjust(ba_graph.to_device(p, dev), intr,
+                                            cfg.ba_stage1_iters, cfg.ba_stage2_iters))
+
+    def timed(fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    graphs = ba_graph.BAGraphs()
+    want, eager_ms = zip(*(timed(eager, p) for p in probs))
+    first, first_ms = timed(graphs.solve, probs[0], intr, cfg, dev)
+    print(f"  first call (eager on the static tensors, then the capture): {first_ms:.1f} ms; "
+          f"captures {graphs.captures}, failed {graphs.failures}")
+    got, replay_ms = zip(*(timed(graphs.solve, p, intr, cfg, dev) for p in probs))
+    names = ("poses", "points", "planes", "obs_inlier")
+    for i, (g, w) in enumerate(zip((first,) + got, (want[0],) + want)):
+        exact = all(np.array_equal(a, b) for a, b in zip(g, w))
+        gap = max(float(np.abs(a - b).max()) for a, b in zip(g[:3], w[:3]))
+        flips = int((g[3] != w[3]).sum())
+        label = "first call" if i == 0 else f"window {i} replay"
+        print(f"  {label}: {'bit-equal to eager' if exact else 'differs from eager'}, "
+              f"largest gap {gap:.3g} m, inlier flips {flips}")
+        if not exact and (gap > 1e-6 or flips):
+            raise AssertionError(f"{label}: {names} off eager by {gap} m, {flips} inlier flips")
+    if np.array_equal(want[2][2][:2], probs[2].planes.numpy()[:2]):
+        raise AssertionError("the third window's planes did not move")
+    if (graphs.captures, graphs.failures, graphs.replays) != (1, 0, 3):
+        raise AssertionError(f"captures {graphs.captures}, failed {graphs.failures}, "
+                             f"replays {graphs.replays}: one capture and three replays expected")
+    n_e, _, dev_e = _profiled(lambda: eager(probs[1]))
+    n_r, _, dev_r = _profiled(lambda: graphs.solve(probs[1], intr, cfg, dev))
+    print(f"  a local BA at {ba_graph.problem_dims(probs[0])}: eager host "
+          + ", ".join(f"{x:.1f}" for x in eager_ms) + " ms, replay host "
+          + ", ".join(f"{x:.1f}" for x in replay_ms) + f" ms; device {dev_e:.2f} ms in "
+          f"{n_e} events eager, {dev_r:.2f} ms in {n_r} replayed")
 
 
 def segmentation_phase(seq):
@@ -1884,6 +1981,7 @@ def _phases(t_start, card, spec, seq, prerender) -> int:
                  np.clip(seq.frames[3][0], 0, 255).astype(np.uint8).astype(np.float32))
     phase("frame", frame_phase, seq)
     path = phase("path", path_phase, seq)
+    phase("BA graph", ba_graph_phase, path)
     phase("segmentation", segmentation_phase, seq)
     planes = phase("planes path", planes_path_phase)
     phase("loop ops", loop_ops_phase, seq)

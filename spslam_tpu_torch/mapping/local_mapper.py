@@ -3,7 +3,8 @@
 
 The BA window (keyframes, points, the map planes the window observes, their
 observations and structural edges) is assembled on the host from the
-MapStore into a padded fixed-shape BAProblem, solved on the device, and
+MapStore into a padded fixed-shape BAProblem, solved on the device (on a
+CUDA device as a replay of one captured graph, `mapping/ba_graph.py`), and
 written back.
 """
 
@@ -17,8 +18,9 @@ import torch
 from .. import resolve_device, tracing
 from ..geometry.camera import Intrinsics
 from ..map.store import MapStore
-from ..solver.ba import BAProblem, bundle_adjust
+from ..solver.ba import BAProblem
 from ..solver.robust import octave_inv_sigma2
+from . import ba_graph
 
 
 @dataclass(frozen=True)
@@ -128,6 +130,14 @@ class LocalMapper:
     def build_problem(self, kf: int):
         """(BAProblem on the device, kf_ids, fixed_mask, pts, obs_src, pl_ids)
         for the window around kf, or None when the window is too small."""
+        built = self._host_problem(kf)
+        if built is None:
+            return None
+        prob, *rest = built
+        return (ba_graph.to_device(prob, self.device), *rest)
+
+    def _host_problem(self, kf: int):
+        """`build_problem` with the BAProblem's tensors on the host."""
         st = self.store
         cfg = self.cfg
         kf_ids, fixed_mask, pts = self._assemble_window(kf)
@@ -181,17 +191,17 @@ class LocalMapper:
 
         planes, plane_valid, pobs, pp, pl_ids = self._window_planes(kf_to_idx)
 
-        def dev(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        def host(a):
+            return torch.from_numpy(np.ascontiguousarray(a))
 
         prob = BAProblem(
-            poses=dev(poses), pose_fixed=dev(pose_fixed), pose_valid=dev(pose_valid),
-            points=dev(points), point_valid=dev(point_valid),
-            obs_cam=dev(obs_cam), obs_pt=dev(obs_pt), obs_uv=dev(obs_uv),
-            obs_ur=dev(obs_ur), obs_inv_sigma2=octave_inv_sigma2(dev(obs_oct)),
-            obs_valid=dev(obs_valid), pt_obs=dev(pt_obs),
-            planes=dev(planes), plane_valid=dev(plane_valid),
-            **{k: dev(v) for k, v in {**pobs, **pp}.items()},
+            poses=host(poses), pose_fixed=host(pose_fixed), pose_valid=host(pose_valid),
+            points=host(points), point_valid=host(point_valid),
+            obs_cam=host(obs_cam), obs_pt=host(obs_pt), obs_uv=host(obs_uv),
+            obs_ur=host(obs_ur), obs_inv_sigma2=octave_inv_sigma2(host(obs_oct)),
+            obs_valid=host(obs_valid), pt_obs=host(pt_obs),
+            planes=host(planes), plane_valid=host(plane_valid),
+            **{k: host(v) for k, v in {**pobs, **pp}.items()},
         )
         return prob, kf_ids, fixed_mask, pts, obs_src, pl_ids
 
@@ -250,17 +260,13 @@ class LocalMapper:
 
     def local_ba(self, kf: int):
         st = self.store
-        built = self.build_problem(kf)
+        built = self._host_problem(kf)
         if built is None:
             return
         prob, kf_ids, fixed_mask, pts, obs_src, pl_ids = built
-        res = bundle_adjust(prob, self.intr, stage1_iters=self.cfg.ba_stage1_iters,
-                            stage2_iters=self.cfg.ba_stage2_iters)
-        # fetch before taking the store lock
-        new_poses = res.poses.cpu().numpy()
-        new_points = res.points.cpu().numpy()
-        new_planes = res.planes.cpu().numpy()
-        inl = res.obs_inlier.cpu().numpy()
+        # solved and fetched before taking the store lock
+        new_poses, new_points, new_planes, inl = ba_graph.GRAPHS.solve(
+            prob, self.intr, self.cfg, self.device)
         with st.lock:
             for i, k in enumerate(kf_ids):
                 if not fixed_mask[i]:
