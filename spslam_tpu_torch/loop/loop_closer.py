@@ -25,13 +25,29 @@ index.  Divergences from the reference:
 * `_optimize_graph` copies the point-observation rows it reads inside the
   store lock (the reference reads `pt_obs_kf` outside it);
 * the GBA worker runs on the System's device explicitly, not the thread's
-  current CUDA device.
+  current CUDA device;
+* the pose graph's write-back carries keyframes inserted while it solved
+  (as a global BA's merge does), and the write-back, the point correction
+  and `on_correction` (the async System's tracker) share one hold of the
+  store's lock; the reference moves such keyframes' points through a pose
+  copied before they existed.
+
+Spans (`tracing.py`, on only while the recorder is): `loop.keyframe` >
+`loop.detect` (gates, KFDB query, consistency chain) and `loop.close` (one
+candidate's `_close_loop`) > `loop.wait_gba`, `loop.geometric_check`,
+`loop.pose_graph` (> `loop.pose_graph_assemble`, `loop.pose_graph_solve`),
+`loop.correct_points` (the write-back with it), `loop.fuse_ends`; `loop.gba` (> `loop.gba_solve`,
+`loop.gba_merge`) on whichever thread runs the global BA.  Counters, always
+kept: `n_geo_checks` and `n_geo_passed` (geometric checks tried and
+passed), `n_loops_closed`, `n_gba_run` and `n_gba_merged` (global BAs
+solved and merged), `n_gba_timeouts` (`wait_gba` timeouts, each skipping a
+closure or the final global BA) and `n_gba_carried_kfs` (keyframes a merge
+carried through their parent).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -56,6 +72,15 @@ from .vocab import Vocabulary, bow_similarity
 def _retransform(T_old, T_new, X):
     """X' = T_new^{-1} . T_old . X, batched (loop point correction)."""
     return se3_apply(se3_inverse(T_new), se3_apply(T_old, X))
+
+
+def _lap(name: str, t0: tuple) -> tuple:
+    """Record span `name` of this thread from `t0` (a `tracing.stamp()`) to
+    now; return now's stamp and the span's wall ms, one clock reading for
+    the span and the closure's `last_*_ms`."""
+    t1 = tracing.stamp()
+    tracing.section(name, t0, t1)
+    return t1, (t1[0] - t0[0]) * 1e-6
 
 
 @dataclass(frozen=True)
@@ -107,6 +132,12 @@ class LoopCloser:
         self._consistent: list[tuple[set, int]] = []
         self.loop_edges: list[tuple[int, int, np.ndarray]] = []  # (i, j, T_ij rel)
         self.n_loops_closed = 0
+        self.n_geo_checks = 0
+        self.n_geo_passed = 0
+        self.n_gba_run = 0
+        self.n_gba_merged = 0
+        self.n_gba_timeouts = 0
+        self.n_gba_carried_kfs = 0
         # per-closure host times (ms) and the accepted inlier count
         self.last_assembly_ms = 0.0
         self.last_pose_graph_ms = 0.0
@@ -122,6 +153,10 @@ class LoopCloser:
         self.draw = lambda valid: draw_hypotheses(valid, self._gen)
         self._gba_pool = None         # lazy 1-worker executor (gba_async)
         self._gba_future = None
+        # (old_poses, new_poses, kf) -> None, called under the store's lock
+        # when a closure or a global BA's merge moves the keyframes: the
+        # async System carries the tracker along (Tracker.correct_map_frame)
+        self.on_correction = None
 
     # -----------------------------------------------------------------
     def process_keyframe(self, kf: int, detect: bool = True) -> bool:
@@ -144,27 +179,28 @@ class LoopCloser:
                 self.kfdb.add(kf, bow)
                 return False
 
-            exclude, covis_min, min_score = self._gates(kf, bow)
-            self.last_gates = dict(kf=int(kf), bow=bow, exclude=exclude, covis_min=covis_min,
-                                   min_score=min_score)
-            cands = self.kfdb.query(bow, exclude, min_score)
-            self.kfdb.add(kf, bow)
-            cands = self._acc_score_filter(cands)
-            if not cands:
-                self._consistent = []
-                return False
+            with tracing.span("loop.detect"):
+                exclude, covis_min, min_score = self._gates(kf, bow)
+                self.last_gates = dict(kf=int(kf), bow=bow, exclude=exclude, covis_min=covis_min,
+                                       min_score=min_score)
+                cands = self.kfdb.query(bow, exclude, min_score)
+                self.kfdb.add(kf, bow)
+                cands = self._acc_score_filter(cands)
+                if not cands:
+                    self._consistent = []
+                    return False
 
-            cand_groups = [
-                (cand, set(int(c) for c in st.covisibility(cand, min_weight=5)) | {cand})
-                for cand, _score in cands
-            ]
-            accepted, near = self._consistency_check(cand_groups)
-            self.events.append(dict(
-                kind="detect", kf=int(kf),
-                cands=[(int(c), round(float(s), 4)) for c, s in cands[:3]],
-                chain=max((c for _, c in self._consistent), default=0),
-                accepted=list(map(int, accepted)), near=list(map(int, near)),
-            ))
+                cand_groups = [
+                    (cand, set(int(c) for c in st.covisibility(cand, min_weight=5)) | {cand})
+                    for cand, _score in cands
+                ]
+                accepted, near = self._consistency_check(cand_groups)
+                self.events.append(dict(
+                    kind="detect", kf=int(kf),
+                    cands=[(int(c), round(float(s), 4)) for c, s in cands[:3]],
+                    chain=max((c for _, c in self._consistent), default=0),
+                    accepted=list(map(int, accepted)), near=list(map(int, near)),
+                ))
             for cand in accepted:
                 if self._close_loop(kf, cand):
                     self._log_closure(kf, cand, False)
@@ -262,26 +298,38 @@ class LoopCloser:
 
     # -----------------------------------------------------------------
     def _close_loop(self, kf: int, cand: int, inlier_scale: float = 1.0) -> bool:
-        st = self.store
-        # one global BA in flight at a time; a stuck solve skips this
-        # closure (the detector offers candidates again)
-        if not self.wait_gba(timeout=30.0):
-            return False
-        ok, T_cand_cur = self._geometric_check(kf, cand, inlier_scale)
-        if not ok:
-            return False
-        # loop edge (rel = T_i . T_j^{-1}, i = cand, j = kf)
-        self.loop_edges.append((int(cand), int(kf), T_cand_cur))
-        old_poses = st.kf_pose.copy()
-        self._optimize_graph(kf, cand)
-        t0 = time.perf_counter()
-        self._correct_points(old_poses)
-        self.last_correct_ms = (time.perf_counter() - t0) * 1e3
-        self._fuse_loop_ends(kf, cand)
-        self._global_refine()
-        self.n_loops_closed += 1
-        self._consistent = []
-        return True
+        with tracing.span("loop.close"):
+            st = self.store
+            # one global BA in flight at a time; a stuck solve skips this
+            # closure (the detector offers candidates again)
+            if not self.wait_gba(timeout=30.0):
+                return False
+            self.n_geo_checks += 1
+            with tracing.span("loop.geometric_check"):
+                ok, T_cand_cur = self._geometric_check(kf, cand, inlier_scale)
+            if not ok:
+                return False
+            self.n_geo_passed += 1
+            # loop edge (rel = T_i . T_j^{-1}, i = cand, j = kf)
+            self.loop_edges.append((int(cand), int(kf), T_cand_cur))
+            with tracing.span("loop.pose_graph"):
+                solved = self._optimize_graph(kf, cand)
+            t = tracing.stamp()
+            # one hold of the store's lock from the write-back to the
+            # tracker's correction: a keyframe the tracker inserts lands
+            # wholly before it (and is carried) or wholly after it
+            with st.lock:
+                old_poses = self._write_back(*solved)
+                self._correct_points(old_poses)
+                if self.on_correction is not None:
+                    self.on_correction(old_poses, st.kf_pose, kf)
+            _, self.last_correct_ms = _lap("loop.correct_points", t)
+            with tracing.span("loop.fuse_ends"):
+                self._fuse_loop_ends(kf, cand)
+            self._global_refine()
+            self.n_loops_closed += 1
+            self._consistent = []
+            return True
 
     def _fuse_loop_ends(self, kf: int, cand: int):
         """Project the loop side's map points into the current side's
@@ -314,29 +362,36 @@ class LoopCloser:
         f = self._gba_future
         if f is None:
             return True
-        try:
-            f.result(timeout)
-        except concurrent.futures.TimeoutError:
-            if not f.done():
-                return False
-            self._gba_future = None
-            raise
-        except BaseException:
-            self._gba_future = None
-            raise
+        with tracing.span("loop.wait_gba"):
+            try:
+                f.result(timeout)
+            except concurrent.futures.TimeoutError:
+                if not f.done():
+                    self.n_gba_timeouts += 1
+                    return False
+                self._gba_future = None
+                raise
+            except BaseException:
+                self._gba_future = None
+                raise
         self._gba_future = None
         return True
 
     def _run_gba(self):
-        t0 = time.perf_counter()
-        if self.device.type == "cuda":
-            with torch.cuda.device(self.device):
+        with tracing.span("loop.gba"):
+            t0 = tracing.stamp()
+            if self.device.type == "cuda":
+                with torch.cuda.device(self.device):
+                    res = self._solve_gba()
+            else:
                 res = self._solve_gba()
-        else:
-            res = self._solve_gba()
-        if res is not None and not res["wrote"]:
-            self._merge_gba(res)
-        self.last_gba_ms = (time.perf_counter() - t0) * 1e3
+            t, _ = _lap("loop.gba_solve", t0)
+            self.n_gba_run += 1
+            if res is not None and not res["wrote"]:
+                self._merge_gba(res)
+                self.n_gba_merged += 1
+                t, _ = _lap("loop.gba_merge", t)
+            self.last_gba_ms = (t[0] - t0[0]) * 1e-6
         self.events.append(dict(kind="gba", ms=round(self.last_gba_ms, 2),
                                 newton=bool(res is not None and res["newton"])))
 
@@ -371,6 +426,7 @@ class LoopCloser:
                 T_rel = np_lie.se3_compose(old_kf_pose[k], np_lie.se3_inverse(old_kf_pose[p]))
                 st.kf_pose[k] = np_lie.se3_compose(T_rel, st.kf_pose[p])
                 prev_valid = k
+                self.n_gba_carried_kfs += 1
             pt_ids = res["pt_ids"]
             st.pt_pos[pt_ids] = res["points"]
             in_gba = np.zeros(st.pt_valid.shape[0], bool)
@@ -385,6 +441,8 @@ class LoopCloser:
             if res["planes"] is not None and len(res["pl_ids"]):
                 st.pl_coef[res["pl_ids"]] = res["planes"]
             st.version += 1
+            if self.on_correction is not None:
+                self.on_correction(old_kf_pose, st.kf_pose, int(kf_ids[-1]))
 
     # -----------------------------------------------------------------
     def _kf(self, name: str, k: int, rows=None) -> torch.Tensor:
@@ -456,10 +514,12 @@ class LoopCloser:
     # -----------------------------------------------------------------
     def _optimize_graph(self, kf: int, cand: int):
         """Essential graph: spanning-tree + strong covisibility + loop
-        edges.  The host assembly snapshots under the store lock, the
-        solve runs outside it, and results write back by stable ids."""
+        edges.  The host assembly snapshots under the store lock and the
+        solve runs outside it.  Returns (solved poses [K, 7], the solved
+        keyframe ids, the keyframe count at the assembly) for
+        `_write_back`."""
         st = self.store
-        t_asm = time.perf_counter()
+        t = tracing.stamp()
         with st.lock:
             K = st.cfg.max_keyframes
             n_kf = st.n_kf
@@ -529,9 +589,7 @@ class LoopCloser:
         ei_p[:E], ej_p[:E], eT_p[:E], ew_p[:E] = ei, ej, eT, ew
         fixed = np.zeros(K, bool)
         fixed[valid_ids[0]] = True
-        self.last_assembly_ms = (time.perf_counter() - t_asm) * 1e3
-
-        t0 = time.perf_counter()
+        t, self.last_assembly_ms = _lap("loop.pose_graph_assemble", t)
 
         def d(x):
             return torch.from_numpy(x).to(self.device)
@@ -542,10 +600,29 @@ class LoopCloser:
             edge_valid=d(np.arange(Ep) < E),
         )
         new_poses = optimize_pose_graph(prob, n_iters=self.cfg.pose_graph_iters).cpu().numpy()
-        self.last_pose_graph_ms = (time.perf_counter() - t0) * 1e3
-        with st.lock:
-            st.kf_pose[valid_ids] = new_poses[valid_ids]
-            st.version += 1
+        _, self.last_pose_graph_ms = _lap("loop.pose_graph_solve", t)
+        return new_poses, valid_ids, n_kf
+
+    def _write_back(self, new_poses: np.ndarray, valid_ids: np.ndarray, n_kf: int) -> np.ndarray:
+        """Write the solved poses back, the caller holding the store's lock,
+        and carry the correction to the keyframes the tracker inserted while
+        the solve ran (ids from n_kf on) through their spanning-tree parent,
+        as `_merge_gba` does.  Returns the poses from before."""
+        st = self.store
+        old = st.kf_pose.copy()
+        st.kf_pose[valid_ids] = new_poses[valid_ids]
+        prev = int(valid_ids[-1])
+        for k in range(n_kf, st.n_kf):
+            if not st.kf_valid[k]:
+                continue
+            p = int(st.kf_parent[k])
+            if p < 0 or not st.kf_valid[p]:
+                p = prev
+            T_rel = np_lie.se3_compose(old[k], np_lie.se3_inverse(old[p]))
+            st.kf_pose[k] = np_lie.se3_compose(T_rel, st.kf_pose[p])
+            prev = k
+        st.version += 1
+        return old
 
     def _correct_points(self, old_poses: np.ndarray):
         """Move each map point (and plane) through its reference keyframe's

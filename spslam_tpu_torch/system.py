@@ -103,6 +103,10 @@ class System:
                 # the keyframe rate follows the mapper's throughput (the
                 # reference's bLocalMappingIdle gate)
                 self.tracker.mapper_queue_fn = self.pipeline.queue_len
+                if self.loop_closer is not None:
+                    # closures and global BAs land while the tracker runs
+                    # ahead: it follows its reference keyframe's move
+                    self.loop_closer.on_correction = self.tracker.correct_map_frame
 
     # -----------------------------------------------------------------
     def track_rgbd(self, gray: np.ndarray, depth: np.ndarray, ts: float):
@@ -227,4 +231,5 @@ class System:
             # still in flight (two solves would race their merges)
             if (lc is not None and lc.wait_gba() and lc.n_loops_closed > 0
                     and not self.cfg.localization_only):
-                lc._run_gba()
+                with tracing.span("system.final_gba"):
+                    lc._run_gba()

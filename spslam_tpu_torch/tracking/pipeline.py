@@ -125,10 +125,9 @@ class AsyncMappingPipeline:
             sys_.plane_mapper.process_keyframe(kf, depth)
         sys_.mapper.process_keyframe(kf, run_ba=sys_.cfg.local_ba and newest)
         if sys_.loop_closer is not None:
-            closed = sys_.loop_closer.process_keyframe(kf, detect=sys_.cfg.use_loop)
-            if closed:
-                with sys_.store.lock:
-                    sys_.tracker.external_pose_correction(sys_.store.kf_pose[kf])
+            # a closure carries the tracker along itself (System sets the
+            # loop closer's on_correction to Tracker.correct_map_frame)
+            sys_.loop_closer.process_keyframe(kf, detect=sys_.cfg.use_loop)
         # the write-back bumped the store version: re-gather the tracker's
         # snapshot here, off its critical path
         sys_.tracker.refresh_snapshot_values()

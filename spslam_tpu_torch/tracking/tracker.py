@@ -24,7 +24,9 @@ loop closer's keyframe database, and the software pipeline
 with `non_blocking=True` and are awaited through one CUDA event per
 dispatch (on the CPU the same code runs synchronously).  A loop closure
 calls `external_pose_correction`, which drops the device pose chain at the
-next dispatch.
+next dispatch; with async mapping the loop closer calls
+`correct_map_frame` from the worker instead, and the tracker carries its
+pose and the frames in flight with its reference keyframe.
 
 With the span recorder on (`tracing.py`), each dispatch and resolve is a
 span (`tracker.dispatch_frame`, `tracker.resolve_frame`), the fused step's
@@ -486,6 +488,10 @@ class Tracker:
         # set (possibly from another thread) when a loop closure rewrote the
         # current pose: the next dispatch rebuilds the device pose chain
         self._pose_corrected = threading.Event()
+        # a map correction published by the async worker (correct_map_frame)
+        # and not yet applied: T_cw <- T_cw . D
+        self._correction = None
+        self._corr_lock = threading.Lock()
         self.pipeline_depth = cfg.pipeline_depth
         self._pending: list[dict] = []
         self._chain = None                         # (T_N, T_{N-1}) device poses
@@ -550,6 +556,31 @@ class Tracker:
         self.velocity = None
         self._pose_corrected.set()
 
+    def correct_map_frame(self, old_poses: np.ndarray, new_poses: np.ndarray, kf: int):
+        """The loop closer moved the keyframes from old_poses to new_poses
+        (from the mapping or gba thread, under the store's lock).  Publish
+        the move of the reference keyframe (kf if that is gone) for the
+        tracker's thread, which applies it at its next step:
+        T_cw <- T_cw . T_ref_old^-1 . T_ref_new, the same for each frame
+        in flight.  The velocity, a relative motion, stays."""
+        ref = self.ref_kf if self.ref_kf >= 0 and self.store.kf_valid[self.ref_kf] else kf
+        D = np_lie.se3_compose(np_lie.se3_inverse(old_poses[ref]), new_poses[ref])
+        with self._corr_lock:
+            self._correction = D if self._correction is None else np_lie.se3_compose(
+                self._correction, D)
+
+    def _take_correction(self, current: dict | None = None):
+        """Apply a published map correction to the pose, the frames in
+        flight (and `current`, popped for resolving) and the device chain."""
+        if self._correction is None:
+            return
+        with self._corr_lock:
+            D, self._correction = self._correction, None
+        self.T_cw = np_lie.se3_compose(self.T_cw, D).astype(np.float32)
+        for q in self._pending + ([current] if current is not None else []):
+            q["corr"] = D if q.get("corr") is None else np_lie.se3_compose(q["corr"], D)
+        self._chain = None
+
     # -----------------------------------------------------------------
     def _depth_meters(self, depth: np.ndarray) -> torch.Tensor:
         d = np.ascontiguousarray(depth)
@@ -561,6 +592,7 @@ class Tracker:
 
     def process(self, gray: np.ndarray, depth: np.ndarray, ts: float):
         """Track one RGB-D frame synchronously; returns (T_cw [7], state)."""
+        self._take_correction()
         gray_t = torch.from_numpy(np.ascontiguousarray(gray)).to(self.device)
         frame = build_frame(
             gray_t.to(torch.float32), self._depth_meters(depth), self.spec, self.intr,
@@ -600,6 +632,7 @@ class Tracker:
         gray_t, depth_t = self._upload_frame(gray, depth)
         if perf is not None:
             t = self._pt("upload", t)
+        self._take_correction()
         ids, pack, desc, pl_pack = self._local_snapshot()
         if perf is not None:
             t = self._pt("snapshot", t)
@@ -667,6 +700,7 @@ class Tracker:
             t = tracing.stamp()
         if p["event"] is not None:
             p["event"].synchronize()
+        self._take_correction(p)
         if p["force_robust"]:
             # an earlier frame failed after this one was dispatched from its
             # bad pose; rerun matching + optimization from the corrected pose
@@ -679,6 +713,9 @@ class Tracker:
             t = self._pt("wait_small", t)
         scal, mp = unpack_track_small(buf, cfg.local_points_cap)
         T_new = scal[0:7]
+        if p.get("corr") is not None:
+            # dispatched before a map correction: carry its pose along
+            T_new = np_lie.se3_compose(T_new, p["corr"])
         n1, n2 = int(scal[7]), int(scal[8])
         n_close_tracked, close_avail = int(scal[9]), int(scal[10])
         # pose-jump gate against the constant-velocity prediction
@@ -1024,8 +1061,13 @@ class Tracker:
         c1a = self.frames_since_kf >= cfg.kf_max_interval
         c1b = self.frames_since_kf >= cfg.kf_min_interval and mapper_idle
         c1c = weak or need_close or urgent
+        # with async mapping an urgent keyframe skips the ratio to the
+        # reference keyframe: the worker adds the observations that make
+        # its young points count only later, and after a weak frame the
+        # ratio stays out of reach while the view turns off the map
         c2 = (
-            (n2 < cfg.kf_tracked_ratio * ref_tracked or need_close)
+            (n2 < cfg.kf_tracked_ratio * ref_tracked or need_close
+             or (urgent and self.mapper_queue_fn is not None))
             and n2 > cfg.kf_min_inliers
         )
         if not (c1a or ((c1b or c1c) and c2)):
@@ -1079,41 +1121,42 @@ class Tracker:
     def _insert_keyframe(self, frame: FrameData, ts, matches_pt_ids, match_kp_idx,
                          frame_np=None, unlimited: bool = False) -> int:
         """Create a keyframe: bind tracked points to kp slots, then create new
-        map points from depth-backed unmatched keypoints, nearest first."""
+        map points from depth-backed unmatched keypoints, nearest first.  The
+        whole insertion holds the store's lock, so a map correction lands
+        wholly before it (and moves T_cw here first) or after it."""
         st = self.store
         frame_np = frame_np or frame_to_numpy(frame)
         with st.lock:
+            self._take_correction()
             kf = st.add_keyframe(self.T_cw, ts, frame_np, self.frame_id, parent=self.ref_kf)
 
-        taken = np.zeros(self.cfg.n_features, bool)
-        if matches_pt_ids is not None:
-            sel = (matches_pt_ids >= 0) & (match_kp_idx >= 0)
-            kps = match_kp_idx[sel]
-            pids = matches_pt_ids[sel]
-            uniq, first = np.unique(kps, return_index=True)
-            with st.lock:
+            taken = np.zeros(self.cfg.n_features, bool)
+            if matches_pt_ids is not None:
+                sel = (matches_pt_ids >= 0) & (match_kp_idx >= 0)
+                kps = match_kp_idx[sel]
+                pids = matches_pt_ids[sel]
+                uniq, first = np.unique(kps, return_index=True)
                 st.add_observations_bulk(pids[first], kf, uniq)
-            taken[uniq] = True
+                taken[uniq] = True
 
-        d = frame_np["depth"]
-        cand = np.nonzero(
-            frame_np["valid"] & ~taken & (d > 1e-3) & (d < self.cfg.th_depth * 2)
-        )[0]
-        order = cand[np.argsort(d[cand], kind="stable")]
-        if not unlimited:
-            n_close = int(np.sum(d[order] <= self.cfg.th_depth))
-            n_keep = max(n_close, min(len(order), self.cfg.max_new_points_per_kf))
-            order = order[:n_keep]
-        if len(order):
-            T_wc = np_lie.se3_inverse(self.T_cw)
-            pos_w = np_lie.se3_apply(T_wc, frame_np["xyz_cam"][order])
-            C = T_wc[4:7]
-            vec = pos_w - C
-            dist = np.linalg.norm(vec, axis=-1)
-            normal = vec / np.maximum(dist[:, None], 1e-9)
-            with st.lock:
+            d = frame_np["depth"]
+            cand = np.nonzero(
+                frame_np["valid"] & ~taken & (d > 1e-3) & (d < self.cfg.th_depth * 2)
+            )[0]
+            order = cand[np.argsort(d[cand], kind="stable")]
+            if not unlimited:
+                n_close = int(np.sum(d[order] <= self.cfg.th_depth))
+                n_keep = max(n_close, min(len(order), self.cfg.max_new_points_per_kf))
+                order = order[:n_keep]
+            if len(order):
+                T_wc = np_lie.se3_inverse(self.T_cw)
+                pos_w = np_lie.se3_apply(T_wc, frame_np["xyz_cam"][order])
+                C = T_wc[4:7]
+                vec = pos_w - C
+                dist = np.linalg.norm(vec, axis=-1)
+                normal = vec / np.maximum(dist[:, None], 1e-9)
                 st.add_points_bulk(
                     pos_w, frame_np["desc"][order], normal, dist, kf, order,
                     octave=frame_np["octave"][order],
                 )
-        return kf
+            return kf

@@ -19,6 +19,7 @@ import threading
 import time
 from collections import Counter
 
+import numpy as np
 import pytest
 import torch
 
@@ -211,3 +212,120 @@ def test_profile_host_span_table_divides_by_frames_and_keyframes():
         ("tracker.dispatch_frame", "MainThread", 2, 15.0, 10.0, "frame"),
         ("worker.keyframe", "mapping", 1, 90.0, 60.0, "keyframe"),
         ("pipeline.queue_wait", "mapping", 1, 30.0, None, "keyframe")]
+
+
+# ---------------------------------------------------------------- loop closing
+def _loop_store(n_cams=8, n_pts=200):
+    """n_cams keyframes in a row seeing the same n_pts points, each keyframe
+    the parent of the next, the poses after the first perturbed (the scene
+    of tests/unit/test_global_ba.py, built with the port's own pieces)."""
+    from spslam_tpu_torch.geometry import np_lie
+    from spslam_tpu_torch.geometry.camera import Intrinsics, project
+    from spslam_tpu_torch.geometry.lie import se3_exp
+    from spslam_tpu_torch.map.store import MapConfig, MapStore
+
+    intr = Intrinsics(fx=100.0, fy=100.0, cx=32.0, cy=24.0, bf=8.0, width=64, height=48)
+    rng = np.random.default_rng(0)
+    st = MapStore(MapConfig(max_keyframes=32, max_points=4096, n_kp=256, max_obs_per_point=16))
+    pts = np.stack([rng.uniform(-3, 3, n_pts), rng.uniform(-2, 2, n_pts),
+                    rng.uniform(4, 9, n_pts)], axis=-1).astype(np.float32)
+    pids = None
+    for c in range(n_cams):
+        T = se3_exp(torch.tensor([0.25 * c, 0.02 * c, 0.0, 0.0, 0.04 * c, 0.0])).numpy()
+        xc = np_lie.se3_apply(T, pts)
+        uv = project(intr, torch.from_numpy(xc)).numpy()
+        n_kp = st.cfg.n_kp
+        frame = dict(uv=np.zeros((n_kp, 2), np.float32), octave=np.zeros(n_kp, np.int32),
+                     angle=np.zeros(n_kp, np.float32),
+                     desc=rng.integers(0, 2 ** 32, (n_kp, 8), dtype=np.uint32),
+                     depth=np.zeros(n_kp, np.float32), u_right=np.full(n_kp, -1.0, np.float32),
+                     valid=np.zeros(n_kp, bool))
+        frame["uv"][:n_pts], frame["depth"][:n_pts] = uv, xc[:, 2]
+        frame["u_right"][:n_pts] = uv[:, 0] - intr.bf / xc[:, 2]
+        frame["valid"][:n_pts] = True
+        k = st.add_keyframe(T, float(c), frame, c, parent=c - 1)
+        if c == 0:
+            dist = np.linalg.norm(pts, axis=-1)
+            pids = st.add_points_bulk(pts, frame["desc"][:n_pts], pts / dist[:, None], dist, k,
+                                      np.arange(n_pts))
+        else:
+            st.add_observations_bulk(pids, k, np.arange(n_pts))
+            xi = torch.from_numpy(rng.normal(0, 0.02, 6).astype(np.float32))
+            st.kf_pose[k] = np_lie.se3_compose(se3_exp(xi).numpy(), T)
+    return st, intr
+
+
+def test_loop_closing_spans_and_counters(recorder, monkeypatch):
+    """One failed and one passing geometric check through `_close_loop` on
+    a small store (the check itself replaced: it answers the loop edge),
+    the global BA held on its `gba` thread after its solve until a
+    keyframe has been added, a `wait_gba` that times out meanwhile, then
+    the merge, which carries the new keyframe: every loop span on its
+    thread, under its parent, and the counters add up."""
+    from spslam_tpu_torch.geometry import np_lie
+    from spslam_tpu_torch.loop import loop_closer
+    from spslam_tpu_torch.loop.loop_closer import LoopCloser, LoopConfig
+
+    st, intr = _loop_store()
+    lc = LoopCloser(intr, st, cfg=LoopConfig(gba_settle_iters=1, gba_stage1_iters=1,
+                                             gba_stage2_iters=1), device=DEV)
+    answers = iter([(False, None),
+                    (True, np_lie.se3_compose(st.kf_pose[0], np_lie.se3_inverse(st.kf_pose[7])))])
+    monkeypatch.setattr(lc, "_geometric_check", lambda kf, cand, scale=1.0: next(answers))
+    solved, go = threading.Event(), threading.Event()
+    real = loop_closer.global_bundle_adjust
+
+    def held_gba(*a, **kw):
+        out = real(*a, **kw)
+        solved.set()
+        assert go.wait(60.0)
+        return out
+
+    monkeypatch.setattr(loop_closer, "global_bundle_adjust", held_gba)
+    assert lc._close_loop(7, 0) is False
+    assert lc._close_loop(7, 0) is True
+    assert solved.wait(60.0)
+    assert lc.wait_gba(timeout=0.01) is False        # held: times out, keeps the future
+    with st.lock:
+        frame = {k: getattr(st, "kf_" + k)[7].copy() for k in ("uv", "octave", "angle", "desc",
+                                                              "depth", "valid")}
+        frame["u_right"] = st.kf_ur[7].copy()
+        st.add_keyframe(st.kf_pose[7], 8.0, frame, 8, parent=7)
+    go.set()
+    assert lc.wait_gba() is True
+    assert (lc.n_geo_checks, lc.n_geo_passed, lc.n_loops_closed) == (2, 1, 1)
+    assert (lc.n_gba_run, lc.n_gba_merged, lc.n_gba_timeouts, lc.n_gba_carried_kfs) == (1, 1, 1, 1)
+
+    spans = tracing.records()
+    by_id = {s.id: s for s in spans}
+    names = Counter(s.name for s in spans)
+    assert names == {"loop.close": 2, "loop.geometric_check": 2, "loop.pose_graph": 1,
+                     "loop.pose_graph_assemble": 1, "loop.pose_graph_solve": 1,
+                     "loop.correct_points": 1, "loop.fuse_ends": 1, "loop.wait_gba": 2,
+                     "loop.gba": 1, "loop.gba_solve": 1, "loop.gba_merge": 1}
+    parent_of = {"loop.geometric_check": "loop.close", "loop.pose_graph": "loop.close",
+                 "loop.pose_graph_assemble": "loop.pose_graph",
+                 "loop.pose_graph_solve": "loop.pose_graph", "loop.correct_points": "loop.close",
+                 "loop.fuse_ends": "loop.close", "loop.gba_solve": "loop.gba",
+                 "loop.gba_merge": "loop.gba", "loop.close": None, "loop.wait_gba": None,
+                 "loop.gba": None}
+    for s in spans:
+        assert (by_id[s.parent].name if s.parent >= 0 else None) == parent_of[s.name], s
+        assert s.thread.startswith("gba") == s.name.startswith("loop.gba"), s
+        if s.parent >= 0:
+            p = by_id[s.parent]
+            assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns
+    (closed,) = [s for s in spans if s.name == "loop.close" and
+                 any(c.parent == s.id and c.name == "loop.pose_graph" for c in spans)]
+    (gba,) = [s for s in spans if s.name == "loop.gba"]
+    assert gba.start_ns >= closed.start_ns
+
+    # the recorder off: the same closure records nothing
+    tracing.disable()
+    tracing.reset()
+    monkeypatch.setattr(loop_closer, "global_bundle_adjust", real)
+    monkeypatch.setattr(lc, "_geometric_check", lambda kf, cand, scale=1.0: (
+        True, np_lie.se3_compose(st.kf_pose[0], np_lie.se3_inverse(st.kf_pose[7]))))
+    assert lc._close_loop(7, 0) is True and lc.wait_gba() is True
+    assert tracing.records() == []
+    assert (lc.n_loops_closed, lc.n_gba_run, lc.n_gba_merged) == (2, 2, 2)
