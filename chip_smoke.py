@@ -26,7 +26,12 @@
    its own: each replay bit-equal to bundle_adjust run eagerly (or within
    1e-6 m with the same inliers), one capture for the three; prints host
    ms of eager and replayed BAs and the device ms of each under the
-   profiler.
+   profiler.  Then the fuse graph phase: every block the path phase's
+   fusion matched (recorded as it ran), through mapping/fuse_graph.py with
+   a cache of its own: each replay's matched slots and distances bit-equal
+   to _fuse_match_batch run eagerly, one capture, no failed capture (in
+   the path phase's process cache too); prints host ms of one block eager
+   and replayed and the device ms of each under the profiler.
 5. Segmentation phase: segment_planes on the card against the CPU on
    frame 2 of that sequence, at 640x480 (the plane mapper's input) and at
    the 320x240 stride-2 depth (the fused step's): equal valid counts, the
@@ -456,6 +461,7 @@ def path_phase(seq):
     import torch
 
     from spslam_tpu_torch.eval.ate import ate_rmse
+    from spslam_tpu_torch.mapping import fuse_graph
     from spslam_tpu_torch.ops import fast_cuda
     from spslam_tpu_torch.system import System, SystemConfig
     from spslam_tpu_torch.tracking.tracker import TrackState
@@ -466,14 +472,26 @@ def path_phase(seq):
     ]
     sys_ = System(SystemConfig(intr=seq.intr, local_ba=True, enable_reloc=False),
                   device="cuda")
+    # every block fusion matches, kept for the fuse graph phase
+    fuse_blocks = []
+    match = fuse_graph.GRAPHS.match
+
+    def recorded(inputs, *a, **kw):
+        fuse_blocks.append(tuple(x.clone() for x in inputs))
+        return match(inputs, *a, **kw)
+
+    fuse_graph.GRAPHS.match = recorded
     fast_cuda.LAUNCHES = 0
     times = []
     t_all = time.perf_counter()
-    for (gray, depth), ts in zip(frames, seq.timestamps):
-        t0 = time.perf_counter()
-        sys_.track_rgbd(gray, depth, ts)
-        times.append(time.perf_counter() - t0)
-    sys_.shutdown()
+    try:
+        for (gray, depth), ts in zip(frames, seq.timestamps):
+            t0 = time.perf_counter()
+            sys_.track_rgbd(gray, depth, ts)
+            times.append(time.perf_counter() - t0)
+        sys_.shutdown()
+    finally:
+        del fuse_graph.GRAPHS.match
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_all
     launches = fast_cuda.LAUNCHES
@@ -502,7 +520,8 @@ def path_phase(seq):
         raise AssertionError(f"kernel launched {launches} times for {len(frames)} frames "
                              f"({n_fused} through the fused step)")
     return dict(launches=launches, n_fused=n_fused, ate=ate, steady_ms=steady_ms,
-                poses=poses, poses_gt=seq.poses_gt, mapper=sys_.mapper)
+                poses=poses, poses_gt=seq.poses_gt, mapper=sys_.mapper,
+                fuse_blocks=fuse_blocks)
 
 
 # two perpendicular world planes (a floor and a wall) and their weights,
@@ -594,6 +613,58 @@ def ba_graph_phase(path):
           + ", ".join(f"{x:.1f}" for x in eager_ms) + " ms, replay host "
           + ", ".join(f"{x:.1f}" for x in replay_ms) + f" ms; device {dev_e:.2f} ms in "
           f"{n_e} events eager, {dev_r:.2f} ms in {n_r} replayed")
+
+
+def fuse_graph_phase(path):
+    """Every block the path phase's fusion matched, through
+    mapping/fuse_graph.py with a cache of its own, against
+    _fuse_match_batch run eagerly on the same block."""
+    import torch
+
+    from spslam_tpu_torch.mapping import fuse_graph
+    from spslam_tpu_torch.mapping.fuse import _fuse_match_batch
+
+    blocks = path["fuse_blocks"]
+    intr, dev = path["mapper"].intr, path["mapper"].device
+    g = fuse_graph.GRAPHS
+    print(f"  the path phase's process cache: {g.captures} capture(s), {g.replays} replays, "
+          f"{g.failures} failed captures; {len(blocks)} blocks recorded")
+    if g.failures or not g.captures or len(blocks) < 2:
+        raise AssertionError("the path phase's fusion did not replay a captured match")
+
+    def eager(b):
+        return fuse_graph.fetch(_fuse_match_batch(*(x.to(dev) for x in b), intr), dist=True)
+
+    def timed(fn, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    graphs = fuse_graph.FuseGraphs()
+    want, eager_ms = zip(*(timed(eager, b) for b in blocks))
+    first, first_ms = timed(graphs.match, blocks[0], intr, dev, dist=True)
+    print(f"  first call (eager on the static tensors, then the capture): {first_ms:.1f} ms; "
+          f"captures {graphs.captures}, failed {graphs.failures}")
+    got, replay_ms = zip(*(timed(graphs.match, b, intr, dev, dist=True) for b in blocks))
+    differ = [i for i, (a, b) in enumerate(zip((first,) + got, (want[0],) + want))
+              if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]))]
+    n_match = int(sum((w[0] >= 0).sum() for w in want))
+    print(f"  {len(blocks)} blocks replayed, {n_match} matches eager: "
+          + ("every replay bit-equal to eager" if not differ
+             else f"{len(differ)} calls differ from eager (first at {differ[0]})"))
+    if differ:
+        raise AssertionError(f"fusion's replayed match differs from eager in calls {differ}")
+    if (graphs.captures, graphs.failures, graphs.replays) != (1, 0, len(blocks)):
+        raise AssertionError(f"captures {graphs.captures}, failed {graphs.failures}, "
+                             f"replays {graphs.replays}: one capture and {len(blocks)} "
+                             f"replays expected")
+    n_e, _, dev_e = _profiled(lambda: eager(blocks[1]))
+    n_r, _, dev_r = _profiled(lambda: graphs.match(blocks[1], intr, dev))
+    print(f"  one block [{blocks[0][0].shape[0]} x {blocks[0][5].shape[0]}]: host ms median "
+          f"eager {np.median(eager_ms):.2f}, replayed {np.median(replay_ms):.2f} (largest "
+          f"{max(eager_ms):.2f}, {max(replay_ms):.2f}); device {dev_e:.3f} ms in {n_e} "
+          f"events eager, {dev_r:.3f} ms in {n_r} replayed")
 
 
 def segmentation_phase(seq):
@@ -1982,6 +2053,7 @@ def _phases(t_start, card, spec, seq, prerender) -> int:
     phase("frame", frame_phase, seq)
     path = phase("path", path_phase, seq)
     phase("BA graph", ba_graph_phase, path)
+    phase("fuse graph", fuse_graph_phase, path)
     phase("segmentation", segmentation_phase, seq)
     planes = phase("planes path", planes_path_phase)
     phase("loop ops", loop_ops_phase, seq)

@@ -3,7 +3,9 @@ reference's ORBmatcher::Fuse driven by LocalMapping::SearchInNeighbors).
 
 One device call projects a padded point block into a stack of target
 keyframes and Hamming-matches it; the host merges the resulting
-(point, keyframe, slot) triples.
+(point, keyframe, slot) triples.  On a CUDA device the match replays one
+captured graph (`fuse_graph.py`); a block's merge changes the store the
+next block is read from, so blocks run one after another.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from ..geometry.camera import Intrinsics
 from ..map.store import MapStore
 from ..ops.brief import unpack_bits
@@ -22,11 +25,12 @@ FUSE_POINTS = 1024   # static point-block size per call
 
 
 def _fuse_match_batch(T_cw_t, kp_uv_t, kp_desc_t, kp_valid_t, kp_oct_t,
-                      pt_pack, pt_desc, intr: Intrinsics):
+                      pt_pack, pt_desc, intr: Intrinsics, log_scale=None):
     """Project one point block into T target keyframes and match.
 
     T_cw_t [T,7], kp_uv_t [T,N,2], kp_desc_t [T,N,8] int32, kp_valid_t [T,N],
-    kp_oct_t [T,N], pt_pack [P,9], pt_desc [P,8] int32.
+    kp_oct_t [T,N], pt_pack [P,9], pt_desc [P,8] int32; `log_scale` as
+    `project_points` takes it.
     Returns (idx [T,P] matched kp slot or -1, dist [T,P])."""
     pos = pt_pack[:, 0:3]
     normal = pt_pack[:, 3:6]
@@ -35,7 +39,8 @@ def _fuse_match_batch(T_cw_t, kp_uv_t, kp_desc_t, kp_valid_t, kp_oct_t,
     pt_bits = unpack_bits(pt_desc)
     idx, dist = [], []
     for t in range(T_cw_t.shape[0]):
-        uv, ok, oct_pred, _ = project_points(T_cw_t[t], pos, normal, mind, maxd, valid, intr)
+        uv, ok, oct_pred, _ = project_points(T_cw_t[t], pos, normal, mind, maxd, valid, intr,
+                                             log_scale)
         radius = 3.0 * torch.pow(1.2, oct_pred.to(torch.float32))
         res = search_by_projection(
             uv, pt_bits, ok, oct_pred, kp_uv_t[t], unpack_bits(kp_desc_t[t]),
@@ -121,16 +126,19 @@ def _merge_matches(st: MapStore, pid_block: np.ndarray, kf_ids: np.ndarray,
 def fuse_into_keyframes(st: MapStore, intr: Intrinsics, pids: np.ndarray,
                         target_kfs: np.ndarray, device) -> tuple[int, int]:
     """Fuse the given map points into the given target keyframes."""
+    from .fuse_graph import GRAPHS
+
     if len(pids) == 0 or len(target_kfs) == 0:
         return 0, 0
     total_fused = total_added = 0
     for t0 in range(0, len(target_kfs), FUSE_TARGETS):
-        kf_ids, poses, uv, desc, valid, octv = _kf_stack(
-            st, target_kfs[t0 : t0 + FUSE_TARGETS], device)
+        kf_ids, *stack = _kf_stack(st, target_kfs[t0 : t0 + FUSE_TARGETS], "cpu")
         for p0 in range(0, len(pids), FUSE_POINTS):
-            pid_block, pack, pdesc = _point_block(st, pids[p0 : p0 + FUSE_POINTS], device)
-            idx, _ = _fuse_match_batch(poses, uv, desc, valid, octv, pack, pdesc, intr)
-            f, a = _merge_matches(st, pid_block, kf_ids, idx.cpu().numpy())
+            pid_block, *block = _point_block(st, pids[p0 : p0 + FUSE_POINTS], "cpu")
+            with tracing.span("mapper.fuse_match"):
+                idx = GRAPHS.match((*stack, *block), intr, device)
+            with tracing.span("mapper.fuse_merge"):
+                f, a = _merge_matches(st, pid_block, kf_ids, idx)
             total_fused += f
             total_added += a
     return total_fused, total_added

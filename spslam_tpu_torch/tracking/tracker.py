@@ -139,9 +139,18 @@ STATS_FLUSH_FRAMES = 8
 PLANE_CAP = 64
 
 
-def project_points(T_cw, pos, normal, min_dist, max_dist, valid, intr: Intrinsics):
+def octave_log_scale(device) -> torch.Tensor:
+    """log(1.2), the pyramid's log scale factor, as a float32 device scalar."""
+    return torch.log(torch.tensor(1.2, dtype=torch.float32, device=device))
+
+
+def project_points(T_cw, pos, normal, min_dist, max_dist, valid, intr: Intrinsics,
+                   log_scale: Optional[torch.Tensor] = None):
     """Project local map points with the reference's frustum gates; also
-    returns the predicted pyramid octave and the camera depth."""
+    returns the predicted pyramid octave and the camera depth.  `log_scale`
+    is `octave_log_scale(pos.device)`, made here when not given: a caller
+    that captures this call in a CUDA graph makes it beforehand, since
+    making it copies a host number to the device."""
     q, t = se3_q(T_cw), se3_t(T_cw)
     xc = quat_rotate(q, pos) + t
     z = xc[..., 2]
@@ -162,7 +171,8 @@ def project_points(T_cw, pos, normal, min_dist, max_dist, valid, intr: Intrinsic
         & (view_cos > 0.5)
     )
     ratio = torch.clamp_min(max_dist, 1e-9) / torch.clamp_min(dist, 1e-9)
-    log_scale = torch.log(torch.tensor(1.2, dtype=torch.float32, device=pos.device))
+    if log_scale is None:
+        log_scale = octave_log_scale(pos.device)
     oct_pred = torch.clamp(torch.ceil(torch.log(ratio) / log_scale).to(torch.int32), 0, 7)
     return uv, ok, oct_pred, z
 

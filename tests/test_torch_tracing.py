@@ -154,6 +154,8 @@ PROGRAM_SPANS = {
     "mapper.keyframe": ("mapping", "worker.keyframe"),
     "mapper.cull_points": ("mapping", "mapper.keyframe"),
     "mapper.fuse": ("mapping", "mapper.keyframe"),
+    "mapper.fuse_match": ("mapping", "mapper.fuse"),
+    "mapper.fuse_merge": ("mapping", "mapper.fuse"),
     "mapper.local_ba": ("mapping", "mapper.keyframe"),
     "mapper.cull_keyframes": ("mapping", "mapper.keyframe"),
     "loop.keyframe": ("mapping", "worker.keyframe"),
@@ -302,13 +304,15 @@ def test_loop_closing_spans_and_counters(recorder, monkeypatch):
     assert names == {"loop.close": 2, "loop.geometric_check": 2, "loop.pose_graph": 1,
                      "loop.pose_graph_assemble": 1, "loop.pose_graph_solve": 1,
                      "loop.correct_points": 1, "loop.fuse_ends": 1, "loop.wait_gba": 2,
-                     "loop.gba": 1, "loop.gba_solve": 1, "loop.gba_merge": 1}
+                     "loop.gba": 1, "loop.gba_solve": 1, "loop.gba_merge": 1,
+                     "mapper.fuse_match": 1, "mapper.fuse_merge": 1}
     parent_of = {"loop.geometric_check": "loop.close", "loop.pose_graph": "loop.close",
                  "loop.pose_graph_assemble": "loop.pose_graph",
                  "loop.pose_graph_solve": "loop.pose_graph", "loop.correct_points": "loop.close",
                  "loop.fuse_ends": "loop.close", "loop.gba_solve": "loop.gba",
                  "loop.gba_merge": "loop.gba", "loop.close": None, "loop.wait_gba": None,
-                 "loop.gba": None}
+                 "loop.gba": None, "mapper.fuse_match": "loop.fuse_ends",
+                 "mapper.fuse_merge": "loop.fuse_ends"}
     for s in spans:
         assert (by_id[s.parent].name if s.parent >= 0 else None) == parent_of[s.name], s
         assert s.thread.startswith("gba") == s.name.startswith("loop.gba"), s
