@@ -474,13 +474,13 @@ def path_phase(seq):
                   device="cuda")
     # every block fusion matches, kept for the fuse graph phase
     fuse_blocks = []
-    match = fuse_graph.GRAPHS.match
+    run = fuse_graph.GRAPHS.run
 
-    def recorded(inputs, *a, **kw):
+    def recorded(key, device, inputs, *a):
         fuse_blocks.append(tuple(x.clone() for x in inputs))
-        return match(inputs, *a, **kw)
+        return run(key, device, inputs, *a)
 
-    fuse_graph.GRAPHS.match = recorded
+    fuse_graph.GRAPHS.run = recorded
     fast_cuda.LAUNCHES = 0
     times = []
     t_all = time.perf_counter()
@@ -491,7 +491,7 @@ def path_phase(seq):
             times.append(time.perf_counter() - t0)
         sys_.shutdown()
     finally:
-        del fuse_graph.GRAPHS.match
+        del fuse_graph.GRAPHS.run
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_all
     launches = fast_cuda.LAUNCHES
@@ -562,6 +562,7 @@ def ba_graph_phase(path):
     own against bundle_adjust run eagerly on the same problems."""
     import torch
 
+    from spslam_tpu_torch.cuda_graphs import CapturedCalls
     from spslam_tpu_torch.mapping import ba_graph
     from spslam_tpu_torch.solver.ba import bundle_adjust
 
@@ -586,12 +587,12 @@ def ba_graph_phase(path):
         out = fn(*a)
         return out, (time.perf_counter() - t0) * 1e3
 
-    graphs = ba_graph.BAGraphs()
+    graphs = CapturedCalls("mapper.ba")
     want, eager_ms = zip(*(timed(eager, p) for p in probs))
-    first, first_ms = timed(graphs.solve, probs[0], intr, cfg, dev)
+    first, first_ms = timed(ba_graph.solve, probs[0], intr, cfg, dev, graphs)
     print(f"  first call (eager on the static tensors, then the capture): {first_ms:.1f} ms; "
           f"captures {graphs.captures}, failed {graphs.failures}")
-    got, replay_ms = zip(*(timed(graphs.solve, p, intr, cfg, dev) for p in probs))
+    got, replay_ms = zip(*(timed(ba_graph.solve, p, intr, cfg, dev, graphs) for p in probs))
     names = ("poses", "points", "planes", "obs_inlier")
     for i, (g, w) in enumerate(zip((first,) + got, (want[0],) + want)):
         exact = all(np.array_equal(a, b) for a, b in zip(g, w))
@@ -608,7 +609,7 @@ def ba_graph_phase(path):
         raise AssertionError(f"captures {graphs.captures}, failed {graphs.failures}, "
                              f"replays {graphs.replays}: one capture and three replays expected")
     n_e, _, dev_e = _profiled(lambda: eager(probs[1]))
-    n_r, _, dev_r = _profiled(lambda: graphs.solve(probs[1], intr, cfg, dev))
+    n_r, _, dev_r = _profiled(lambda: ba_graph.solve(probs[1], intr, cfg, dev, graphs))
     print(f"  a local BA at {ba_graph.problem_dims(probs[0])}: eager host "
           + ", ".join(f"{x:.1f}" for x in eager_ms) + " ms, replay host "
           + ", ".join(f"{x:.1f}" for x in replay_ms) + f" ms; device {dev_e:.2f} ms in "
@@ -621,6 +622,7 @@ def fuse_graph_phase(path):
     _fuse_match_batch run eagerly on the same block."""
     import torch
 
+    from spslam_tpu_torch.cuda_graphs import CapturedCalls
     from spslam_tpu_torch.mapping import fuse_graph
     from spslam_tpu_torch.mapping.fuse import _fuse_match_batch
 
@@ -632,8 +634,11 @@ def fuse_graph_phase(path):
     if g.failures or not g.captures or len(blocks) < 2:
         raise AssertionError("the path phase's fusion did not replay a captured match")
 
+    def fetch(out):
+        return out[0].cpu().numpy(), out[1].cpu().numpy()
+
     def eager(b):
-        return fuse_graph.fetch(_fuse_match_batch(*(x.to(dev) for x in b), intr), dist=True)
+        return fetch(_fuse_match_batch(*(x.to(dev) for x in b), intr))
 
     def timed(fn, *a, **kw):
         torch.cuda.synchronize()
@@ -641,12 +646,13 @@ def fuse_graph_phase(path):
         out = fn(*a, **kw)
         return out, (time.perf_counter() - t0) * 1e3
 
-    graphs = fuse_graph.FuseGraphs()
+    graphs = CapturedCalls("mapper.fuse")
     want, eager_ms = zip(*(timed(eager, b) for b in blocks))
-    first, first_ms = timed(graphs.match, blocks[0], intr, dev, dist=True)
+    first, first_ms = timed(fuse_graph.match, blocks[0], intr, dev, graphs, fetch)
     print(f"  first call (eager on the static tensors, then the capture): {first_ms:.1f} ms; "
           f"captures {graphs.captures}, failed {graphs.failures}")
-    got, replay_ms = zip(*(timed(graphs.match, b, intr, dev, dist=True) for b in blocks))
+    got, replay_ms = zip(*(timed(fuse_graph.match, b, intr, dev, graphs, fetch)
+                           for b in blocks))
     differ = [i for i, (a, b) in enumerate(zip((first,) + got, (want[0],) + want))
               if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]))]
     n_match = int(sum((w[0] >= 0).sum() for w in want))
@@ -660,7 +666,7 @@ def fuse_graph_phase(path):
                              f"replays {graphs.replays}: one capture and {len(blocks)} "
                              f"replays expected")
     n_e, _, dev_e = _profiled(lambda: eager(blocks[1]))
-    n_r, _, dev_r = _profiled(lambda: graphs.match(blocks[1], intr, dev))
+    n_r, _, dev_r = _profiled(lambda: fuse_graph.match(blocks[1], intr, dev, graphs))
     print(f"  one block [{blocks[0][0].shape[0]} x {blocks[0][5].shape[0]}]: host ms median "
           f"eager {np.median(eager_ms):.2f}, replayed {np.median(replay_ms):.2f} (largest "
           f"{max(eager_ms):.2f}, {max(replay_ms):.2f}); device {dev_e:.3f} ms in {n_e} "

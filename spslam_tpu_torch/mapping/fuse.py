@@ -126,7 +126,7 @@ def _merge_matches(st: MapStore, pid_block: np.ndarray, kf_ids: np.ndarray,
 def fuse_into_keyframes(st: MapStore, intr: Intrinsics, pids: np.ndarray,
                         target_kfs: np.ndarray, device) -> tuple[int, int]:
     """Fuse the given map points into the given target keyframes."""
-    from .fuse_graph import GRAPHS
+    from . import fuse_graph
 
     if len(pids) == 0 or len(target_kfs) == 0:
         return 0, 0
@@ -136,7 +136,7 @@ def fuse_into_keyframes(st: MapStore, intr: Intrinsics, pids: np.ndarray,
         for p0 in range(0, len(pids), FUSE_POINTS):
             pid_block, *block = _point_block(st, pids[p0 : p0 + FUSE_POINTS], "cpu")
             with tracing.span("mapper.fuse_match"):
-                idx = GRAPHS.match((*stack, *block), intr, device)
+                idx = fuse_graph.match((*stack, *block), intr, device)
             with tracing.span("mapper.fuse_merge"):
                 f, a = _merge_matches(st, pid_block, kf_ids, idx)
             total_fused += f

@@ -127,17 +127,9 @@ class LocalMapper:
             fixed_mask[np.argmin(kf_ids)] = True   # gauge: pin the oldest
         return kf_ids, fixed_mask, pts
 
-    def build_problem(self, kf: int):
-        """(BAProblem on the device, kf_ids, fixed_mask, pts, obs_src, pl_ids)
-        for the window around kf, or None when the window is too small."""
-        built = self._host_problem(kf)
-        if built is None:
-            return None
-        prob, *rest = built
-        return (ba_graph.to_device(prob, self.device), *rest)
-
     def _host_problem(self, kf: int):
-        """`build_problem` with the BAProblem's tensors on the host."""
+        """(host BAProblem, kf_ids, fixed_mask, pts, obs_src, pl_ids) for the
+        window around kf, or None when the window is too small."""
         st = self.store
         cfg = self.cfg
         kf_ids, fixed_mask, pts = self._assemble_window(kf)
@@ -265,7 +257,7 @@ class LocalMapper:
             return
         prob, kf_ids, fixed_mask, pts, obs_src, pl_ids = built
         # solved and fetched before taking the store lock
-        new_poses, new_points, new_planes, inl = ba_graph.GRAPHS.solve(
+        new_poses, new_points, new_planes, inl = ba_graph.solve(
             prob, self.intr, self.cfg, self.device)
         with st.lock:
             for i, k in enumerate(kf_ids):

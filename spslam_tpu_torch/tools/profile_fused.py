@@ -148,9 +148,8 @@ def chained_ms(fn, T0, device, n: int) -> float:
 
 
 def kernels_per_step(fn, T0, device):
-    """Device kernels and copies of one call, counted as perf_profile's
-    _count_one counts them (events with device time), from a trace of the
-    device's activity alone (the host-side op trace of ~30,000 launches
+    """Device kernels and copies of one call (events with device time),
+    counted from a trace of the device's activity alone (the host-side op trace of ~30,000 launches
     costs seconds to build); None off the card."""
     if device.type != "cuda":
         return None

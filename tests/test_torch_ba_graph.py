@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from spslam_tpu_torch import tracing
+from spslam_tpu_torch import cuda_graphs, tracing
 from spslam_tpu_torch.geometry import np_lie
 from spslam_tpu_torch.geometry.camera import Intrinsics
 from spslam_tpu_torch.geometry.plane import transform_plane_np
@@ -107,11 +107,11 @@ def test_static_buffers_give_each_problem_its_own_result():
                  "pobs_pi", "pp_valid"):
         assert not torch.equal(getattr(p1, name), getattr(p2, name)), name
     want1, want2 = _eager(p1), _eager(p2)
-    static = ba_graph.StaticBA(p1, INTR, CFG.ba_stage1_iters, CFG.ba_stage2_iters, "cpu")
-    static.load(p1)
-    got1 = ba_graph.fetch(static.solve())
-    static.load(p2)
-    got2 = ba_graph.fetch(static.solve())
+    static, solve = cuda_graphs.static_call(p1, ba_graph.build(INTR, CFG), "cpu")
+    cuda_graphs.load(static, p1)
+    got1 = ba_graph.fetch(solve())
+    cuda_graphs.load(static, p2)
+    got2 = ba_graph.fetch(solve())
     _assert_equal(got1, want1)
     _assert_equal(got2, want2)
     # the solve moved the map, so equal results are not the inputs echoed
@@ -130,14 +130,14 @@ def test_only_the_mappers_shape_on_a_card_reaches_the_cache():
     small = LocalMapper(other, INTR, _store(1, True), "cpu")._host_problem(N_KF - 1)[0]
     assert ba_graph.problem_dims(small) == ba_graph.mapper_dims(other)
     cuda = torch.device("cuda", 0)
-    key = ba_graph.BAGraphs.key(prob, INTR, CFG, cuda)
+    key = ba_graph.key(prob, INTR, CFG, cuda)
     assert key is not None
-    assert ba_graph.BAGraphs.key(prob, INTR._replace(fx=500.0), CFG, cuda) != key
-    assert ba_graph.BAGraphs.key(prob, INTR, MapperConfig(ba_stage2_iters=7), cuda) != key
-    assert ba_graph.BAGraphs.key(small, INTR, CFG, cuda) is None
-    assert ba_graph.BAGraphs.key(prob, INTR, CFG, "cpu") is None
-    graphs = ba_graph.BAGraphs()
-    _assert_equal(graphs.solve(small, INTR, CFG, "cpu"), _eager(small))
+    assert ba_graph.key(prob, INTR._replace(fx=500.0), CFG, cuda) != key
+    assert ba_graph.key(prob, INTR, MapperConfig(ba_stage2_iters=7), cuda) != key
+    assert ba_graph.key(small, INTR, CFG, cuda) is None
+    assert ba_graph.key(prob, INTR, CFG, "cpu") is None
+    graphs = cuda_graphs.CapturedCalls("mapper.ba")
+    _assert_equal(ba_graph.solve(small, INTR, CFG, "cpu", graphs), _eager(small))
     assert graphs._entries == {} and (graphs.captures, graphs.replays) == (0, 0)
 
 
@@ -145,7 +145,7 @@ def test_only_the_mappers_shape_on_a_card_reaches_the_cache():
 def test_local_mapper_on_the_cpu_stays_eager(planes):
     """LocalMapper.local_ba on the CPU records no replay or capture span,
     adds no cache entry, and writes back what bundle_adjust on
-    build_problem's problem gives."""
+    the window's host problem, moved to the device, gives."""
     kf = N_KF - 1
     st, st_ref = _store(3, planes), _store(3, planes)
     tracing.reset()
@@ -160,8 +160,8 @@ def test_local_mapper_on_the_cpu_stays_eager(planes):
     assert ba_graph.GRAPHS._entries == {}
 
     prob, kf_ids, fixed_mask, pts, obs_src, pl_ids = LocalMapper(
-        CFG, INTR, st_ref, "cpu").build_problem(kf)
-    res = bundle_adjust(prob, INTR, stage1_iters=CFG.ba_stage1_iters,
+        CFG, INTR, st_ref, "cpu")._host_problem(kf)
+    res = bundle_adjust(ba_graph.to_device(prob, "cpu"), INTR, stage1_iters=CFG.ba_stage1_iters,
                         stage2_iters=CFG.ba_stage2_iters)
     new_poses, new_points = res.poses.numpy(), res.points.numpy()
     new_planes, inl = res.planes.numpy(), res.obs_inlier.numpy()

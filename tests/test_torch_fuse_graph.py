@@ -13,7 +13,7 @@ bit: the arithmetic is the same on the same inputs.
 import numpy as np
 import torch
 
-from spslam_tpu_torch import tracing
+from spslam_tpu_torch import cuda_graphs, tracing
 from spslam_tpu_torch.geometry import np_lie
 from spslam_tpu_torch.geometry.camera import Intrinsics
 from spslam_tpu_torch.map.store import MapConfig, MapStore
@@ -72,6 +72,10 @@ def _eager(inputs) -> tuple:
     return idx.numpy(), dist.numpy()
 
 
+def _fetch_with_dist(out) -> tuple:
+    return out[0].cpu().numpy(), out[1].cpu().numpy()
+
+
 def test_static_buffers_give_each_block_its_own_result():
     """Two blocks in turn through one set of static tensors (copy-in, then
     the match a capture records, run eagerly on them): each gives its own
@@ -83,11 +87,11 @@ def test_static_buffers_give_each_block_its_own_result():
     assert [tuple(x.shape) for x in b1] == [tuple(x.shape) for x in b2]
     assert b1[0].shape[0] == fuse.FUSE_TARGETS and b1[5].shape[0] == fuse.FUSE_POINTS
     want1, want2 = _eager(b1), _eager(b2)
-    static = fuse_graph.StaticFuse(b1, INTR, "cpu")
-    static.load(b1)
-    got1 = fuse_graph.fetch(static.match(), dist=True)
-    static.load(b2)
-    got2 = fuse_graph.fetch(static.match(), dist=True)
+    static, match = cuda_graphs.static_call(b1, fuse_graph.build(INTR), "cpu")
+    cuda_graphs.load(static, b1)
+    got1 = _fetch_with_dist(match())
+    cuda_graphs.load(static, b2)
+    got2 = _fetch_with_dist(match())
     for got, want in ((got1, want1), (got2, want2)):
         np.testing.assert_array_equal(got[0], want[0])
         np.testing.assert_array_equal(got[1], want[1])
@@ -103,21 +107,21 @@ def test_only_a_full_block_on_a_card_reaches_the_cache():
     valid = np.nonzero(st.pt_valid)[0]
     full = _block(st, valid, [1, 2])
     cuda = torch.device("cuda", 0)
-    key = fuse_graph.FuseGraphs.key(full, INTR, cuda)
+    key = fuse_graph.key(full, INTR, cuda)
     assert key is not None
-    assert fuse_graph.FuseGraphs.key(full, INTR._replace(fx=500.0), cuda) != key
-    assert fuse_graph.FuseGraphs.key(full, INTR, "cpu") is None
+    assert fuse_graph.key(full, INTR._replace(fx=500.0), cuda) != key
+    assert fuse_graph.key(full, INTR, "cpu") is None
     fewer_targets = (*(x[:4] for x in full[:5]), *full[5:])
     fewer_points = (*full[:5], *(x[:512] for x in full[5:]))
     for other in (fewer_targets, fewer_points):
-        assert fuse_graph.FuseGraphs.key(other, INTR, cuda) is None
-    graphs = fuse_graph.FuseGraphs()
+        assert fuse_graph.key(other, INTR, cuda) is None
+    graphs = cuda_graphs.CapturedCalls("mapper.fuse")
     for inputs in (full, fewer_targets, fewer_points):
-        got = graphs.match(inputs, INTR, "cpu", dist=True)
+        got = fuse_graph.match(inputs, INTR, "cpu", graphs, _fetch_with_dist)
         want = _eager(inputs)
         np.testing.assert_array_equal(got[0], want[0])
         np.testing.assert_array_equal(got[1], want[1])
-        np.testing.assert_array_equal(graphs.match(inputs, INTR, "cpu"), want[0])
+        np.testing.assert_array_equal(fuse_graph.match(inputs, INTR, "cpu", graphs), want[0])
     assert graphs._entries == {} and (graphs.captures, graphs.replays, graphs.failures) == (0, 0, 0)
 
 
